@@ -1,0 +1,95 @@
+"""Builds the CUDA sources under ``csrc/`` into shared libraries with a plain
+C interface, at first use, and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, where the
+hash covers the source and the compiler flags, so an edited source is
+rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc``
+per source at once and waits for all of them. Importing this module needs
+neither ``nvcc`` nor a GPU; building does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _start(nvcc: str, name: str):
+    """Start nvcc for csrc/<name>.cu into a temporary file; returns
+    (process, temporary path, final path)."""
+    lib = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, lib
+
+
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that is not built yet, all nvcc processes
+    started together. Returns {name: compiler output} for those compiled;
+    raises RuntimeError naming the source that failed."""
+    names = [n for n in names if not library_path(n).exists()]
+    if not names:
+        return {}
+    nvcc = nvcc_path()
+    started = {name: _start(nvcc, name) for name in names}
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, (proc, tmp, lib) in started.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu, built first if needed."""
+    with _lock:
+        if name not in _loaded:
+            build_all([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]
