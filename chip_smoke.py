@@ -6,22 +6,31 @@ Run from the root of the repository on a machine with a CUDA card:
 
 Phases (any failure raises and exits nonzero):
   1. device: require CUDA, print `nvidia-smi` name and power limit;
-  2. build: compile every kernel of the render path from csrc/ with nvcc;
-  3. kernel vs plain: hold the CUDA forward blend against its plain PyTorch
-     version on the same inputs (bench.py's 512x512 @ 100k scene, an odd
-     1000x600 @ 20k size with partial edge tiles), and the port's render on
-     a small scene against the per-pixel oracle;
-  4. main path at full width: scripts/bench_1080p.py's scene (1M Gaussians,
-     SH degree 3, seed 0) written as gs.ply, loaded back onto the card and
-     served by the port's viewer at 1920x1080: three GET /render and one
-     GET /state. The kernel's launch count is reset just before and read
-     just after. Then the kernel, its plain version and a whole render are
-     timed with CUDA events at that shape, and the kernel's bound is
-     computed from this run's data.
-The line before the last is the JSON kernels record; the last line is
-{"ok": true, "device": {...}}.
+  2. build: compile both blend kernels from csrc/ with nvcc, in parallel;
+  3. kernels vs plain: hold the CUDA forward blend (B1) and backward blend
+     (B2) against their plain PyTorch versions on the same inputs (bench.py's
+     512x512 @ 100k scene, an odd 1000x600 @ 20k size with partial edge
+     tiles), the port's render on a small scene against the per-pixel
+     oracle, and the render's gradients through B1 + B2 + index_add_
+     against the same loss's gradients through the plain versions;
+  4. serving path at full width: scripts/bench_1080p.py's scene (1M
+     Gaussians, SH degree 3, seed 0) written as gs.ply, loaded back onto the
+     card and served by the port's viewer at 1920x1080: three GET /render
+     and one GET /state. B1 and B2 are also held against their plain
+     versions at this shape;
+  5. training path at full width: that scene, rendered from 4 orbit views,
+     is the ground truth; gs_trainer.train runs 40 iterations at 1920x1080
+     from its jittered means (create_from_pcd, capacity 2^21), with two
+     densify steps, and evaluate's PSNR must rise;
+  6. timing: B1, B2 and their plain versions at 1080p @ 1M with CUDA events,
+     their bounds from this run's data, a train step broken into its parts,
+     and one densify step.
+Both main paths (4 and 5) reset the kernels' launch counts just before and
+read them just after. The line before the last is the JSON kernels record;
+the last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -41,11 +50,23 @@ from frosting_tpu_torch.cameras import look_at_camera
 from frosting_tpu_torch.raster import RasterConfig, render
 from frosting_tpu_torch.raster import blend_cuda
 from frosting_tpu_torch.raster.binning import bin_gaussians
-from frosting_tpu_torch.raster.blend_torch import blend_forward_torch, blend_work_torch
+from frosting_tpu_torch.raster.blend_torch import (
+    blend_backward_torch,
+    blend_forward_torch,
+    blend_work_torch,
+)
 from frosting_tpu_torch.raster.preprocess import pack_fields, preprocess
 from frosting_tpu_torch.raster.reference import render_naive
-from frosting_tpu_torch.raster.render import autotune_max_instances, count_instances
+from frosting_tpu_torch.raster.render import (
+    BlendFunction,
+    autotune_max_instances,
+    count_instances,
+)
+from frosting_tpu_torch.ops.ssim import l1_loss, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
+from frosting_tpu_torch.scene import synthetic
+from frosting_tpu_torch.train import gs_trainer
+from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import viewer
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): 3.35 TB/s
@@ -55,17 +76,34 @@ from frosting_tpu_torch.utils import viewer
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SFU_OPS_S = 132 * 16 * (FP32_FLOP_S / (132 * 128 * 2))
-# Per evaluated (instance, pixel) pair the blend needs at least dx, dy, the
-# quadratic form (9 flops) and op * exp: 12 FP32 flops and one exp.
-FLOPS_PER_PAIR = 12
-# Kernel vs plain tolerance: atol/rtol 1e-5; at most 0.1% of pixels may
+# Per evaluated (instance, pixel) pair the forward blend needs at least dx,
+# dy, the quadratic form (9 flops) and op * exp: 12 FP32 flops and one exp.
+# The backward adds about 30 flops (T, u, dalpha, the nine terms) and one
+# reciprocal 1 / (1 - alpha) on the SFU.
+FLOPS_PER_PAIR, SFU_PER_PAIR = 12, 1
+FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD = 42, 2
+# Kernel vs plain tolerance: atol/rtol 1e-5; at most 0.1% of values may
 # differ by a stop-threshold flip (T * (1 - alpha) on the 1e-4 stop, where
-# the two sum in another order), each by at most alpha * T <= 1e-2.
+# the two sum in another order). A forward flip moves a pixel by at most
+# alpha * T <= 1e-2. A backward value is a sum over the tile's pixels, so it
+# is compared normalised by its column's largest magnitude; a flip there
+# moves one pixel's term of one or two instances, which has no small bound.
 ATOL = RTOL = 1e-5
 FLIP_SHARE, FLIP_BOUND = 1e-3, 1e-2
+# Render gradients, kernels vs plain, normalised by the largest magnitude:
+# the render-vs-oracle gradient tolerance of tests/test_raster.py.
+GRAD_ATOL = 5e-4
 MAIN_W, MAIN_H, MAIN_N = 1920, 1080, 1_000_000
 ORBITS = ((0.0, 0.3), (2.1, 0.2), (4.2, 0.45))  # (azimuth, elevation)
 ORBIT_R = 3.5
+# Training: 4 views on the same orbit, 40 iterations (SH degree up every 10,
+# densify at 20 and 30, size prune at 30, opacity reset past the run).
+TRAIN_ORBITS = ((0.5, 0.25), (2.0, 0.4), (3.6, 0.15), (5.1, 0.35))
+TRAIN_ITERS = 40
+TRAIN_CAPACITY = 1 << 21
+TRAIN_JITTER = 0.003  # world units; the scene's scales are 0.003-0.015
+# 3DGS sets it to 1.1 x the cameras' largest distance from their centre
+TRAIN_EXTENT = 1.1 * ORBIT_R
 DEV = "cuda"
 
 
@@ -121,6 +159,63 @@ def compare(label, fields, binned, cfg):
     if off > FLIP_SHARE or max_err > FLIP_BOUND:
         raise AssertionError(f"{label}: kernel disagrees with the plain version")
     return max_err
+
+
+def compare_backward(label, fields, binned, cfg, plain_chunk=None):
+    """B2 vs its plain version on the same inputs (B1's output and a seeded
+    cotangent with colour and T parts); returns max abs error."""
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    g = torch.randn(out.shape, generator=gen, device=DEV)
+    before = blend_cuda.blend_backward.launches
+    rows = blend_cuda.blend_backward(fields, binned, cfg, out, g)
+    torch.cuda.synchronize()
+    if blend_cuda.blend_backward.launches != before + 1:
+        raise AssertionError(f"{label}: the backward kernel's count did not rise")
+    plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk or cfg.chunk)
+    ref = blend_backward_torch(fields, binned, plain_cfg, out, g)
+    if not torch.isfinite(rows).all():
+        raise AssertionError(f"{label}: backward kernel output not finite")
+    scale = ref.abs().amax(dim=0).clamp_min(1e-30)  # per gradient column
+    err = (rows - ref).abs()
+    off = (err / scale > ATOL + RTOL * ref.abs() / scale).float().mean().item()
+    max_err = err.max().item()
+    log(f"{label} backward: rows {rows.shape[0]} max_abs_err {max_err:.3e} "
+        f"max_normalised_err {(err / scale).max().item():.3e} "
+        f"share_off_tol {off:.2e}")
+    if off > FLIP_SHARE:
+        raise AssertionError(f"{label}: backward kernel disagrees with the plain version")
+    return max_err
+
+
+def phase_render_gradients(gs, cam, cfg):
+    """The render's gradients on the card (B1 + B2 + index_add_) against the
+    same loss's gradients through the plain blend versions."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    target = torch.rand((3, cfg.height, cfg.width), generator=gen, device=DEV)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=DEV)
+
+    def loss_of(image, t_final):
+        return torch.mean((image - target) ** 2) + 0.1 * torch.mean(t_final)
+
+    leaves = [t.clone().requires_grad_(True) for t in gs]
+    out = render(*leaves, cam, cfg, bg=bg)
+    got = torch.autograd.grad(loss_of(out.image, out.t_final), leaves)
+
+    leaves = [t.clone().requires_grad_(True) for t in gs]
+    proj = preprocess(*leaves, cam, cfg)
+    out4, _, _ = BlendFunction.apply(
+        pack_fields(proj), proj.rect, proj.depths, proj.valid, cfg,
+        blend_forward_torch, blend_backward_torch,
+    )
+    image = out4[:3] + out4[3][None] * bg[:, None, None]
+    ref = torch.autograd.grad(loss_of(image, out4[3]), leaves)
+    for name, a, b in zip(("means3d", "scales", "quats", "opacities", "sh"), got, ref):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item() / max(scale, 1e-30)
+        log(f"render gradient {name}: max normalised err {err:.3e} (max |grad| {scale:.3e})")
+        if not (scale > 0 and err <= GRAD_ATOL and torch.isfinite(a).all()):
+            raise AssertionError(f"render gradient of {name} disagrees with the plain versions")
 
 
 def cuda_ms(fn, reps):
@@ -179,12 +274,148 @@ def phase_small_reference():
         raise AssertionError("render disagrees with the per-pixel oracle")
 
 
+class Timer:
+    """CUDA events recorded between the parts of one run; ms per part."""
+
+    def __init__(self):
+        self.marks = []
+
+    def mark(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def parts(self):
+        self.marks[-1][1].synchronize()
+        return {
+            name: a.elapsed_time(b)
+            for (_, a), (name, b) in zip(self.marks, self.marks[1:])
+        }
+
+
+def step_breakdown(state, opt, cam, gt, rcfg, tcfg, reps):
+    """A train step at full SH degree, cut where the trainer's render and
+    loss pass from one part to the next (the same calls as
+    gs_trainer.train_step), with CUDA events between the parts. Returns the
+    median ms of each part over reps runs, after one warm-up run, and the
+    last run's blend inputs (fields, binned, out, g_out)."""
+    bg = torch.zeros(3, device=DEV)
+    runs = []
+    for _ in range(reps + 1):
+        p = state.params
+        leaves = {g: getattr(p, g).detach().requires_grad_(True) for g in opt_lib.GROUPS}
+        probe = torch.zeros((p.capacity, 2), device=DEV, requires_grad=True)
+        t = Timer()
+        t.mark("start")
+        model = gauss_lib.activate(dataclasses.replace(p, **leaves))
+        proj = preprocess(*model, cam, rcfg)
+        proj = proj._replace(means2d=proj.means2d + probe)
+        fields = pack_fields(proj)
+        t.mark("preprocess")
+        binned = bin_gaussians(proj.rect, proj.depths, proj.valid, rcfg)
+        t.mark("binning")
+        out = blend_cuda.blend_forward(fields.detach(), binned, rcfg)
+        t.mark("blend_forward (B1)")
+        out_leaf = out.requires_grad_(True)
+        image = out_leaf[:3] + out_leaf[3][None] * bg[:, None, None]
+        loss = (1.0 - tcfg.lambda_dssim) * l1_loss(image, gt) + (
+            tcfg.lambda_dssim * (1.0 - ssim(image, gt)))
+        (g_out,) = torch.autograd.grad(loss, out_leaf)
+        t.mark("loss + SSIM, forward and backward")
+        rows = blend_cuda.blend_backward(fields.detach(), binned, rcfg, out.detach(),
+                                         g_out.contiguous())
+        t.mark("blend_backward (B2)")
+        dfields = torch.zeros_like(fields).index_add_(0, binned.inst_gauss.long(), rows)
+        t.mark("reduction (index_add_)")
+        *grads, _ = torch.autograd.grad(
+            fields, [leaves[g] for g in opt_lib.GROUPS] + [probe], dfields)
+        t.mark("preprocess backward")
+        opt.step(p, dict(zip(opt_lib.GROUPS, grads)), state.opt_state,
+                 torch.isfinite(loss.detach()))
+        t.mark("Adam")
+        runs.append(t.parts())
+    runs = runs[1:]
+    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    return parts, (fields.detach(), binned, out.detach(), g_out.contiguous())
+
+
+def phase_training(model, rcfg):
+    """The training main path: gs_trainer.train at full width. Returns
+    (state, cameras, ground truth, train config, launches per kernel)."""
+    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in TRAIN_ORBITS]
+    with torch.inference_mode():
+        gt_imgs = np.stack([
+            render(*model, c, rcfg).image.cpu().numpy() for c in cams
+        ])
+    pts, cols = synthetic.degraded_init(model, keep=1.0, jitter=TRAIN_JITTER, seed=1)
+    tcfg = gs_trainer.GSTrainConfig(
+        iterations=TRAIN_ITERS,
+        capacity=TRAIN_CAPACITY,
+        sh_increase_interval=10,
+        densify_from=20,
+        densify_until=31,
+        densification_interval=10,
+        size_threshold_from=25,
+        # the reference's 20 px is for ~1000 px wide training images; scaled
+        # to 1920 px, so that the isotropic init's own radii (~20 px near the
+        # cameras) are not pruned wholesale
+        max_screen_size=40.0,
+        opacity_reset_interval=10 * TRAIN_ITERS,
+        log_every=10,
+    )
+    t0 = time.time()
+    init, _ = gs_trainer.init_state(pts, cols, TRAIN_EXTENT, tcfg, device=DEV)
+    log(f"train init: {len(pts)} points, create_from_pcd (host KNN) "
+        f"{time.time() - t0:.1f} s")
+    before = gs_trainer.evaluate(init, cams, gt_imgs, rcfg, tcfg)
+    del init
+    torch.cuda.empty_cache()
+
+    lines = []
+
+    def log_train(line):
+        lines.append(line)
+        log("  " + line)
+
+    blend_cuda.blend_forward.launches = 0
+    blend_cuda.blend_backward.launches = 0
+    t0 = time.time()
+    state, history = gs_trainer.train(
+        cams, gt_imgs, pts, cols, TRAIN_EXTENT, rcfg, tcfg, seed=0,
+        log_fn=log_train, device=DEV,
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {
+        "blend_forward": blend_cuda.blend_forward.launches,
+        "blend_backward": blend_cuda.blend_backward.launches,
+    }
+    after = gs_trainer.evaluate(state, cams, gt_imgs, rcfg, tcfg)
+    log(f"training: {TRAIN_ITERS} iterations at {MAIN_W}x{MAIN_H} from {len(pts)} "
+        f"points in {wall:.1f} s (init included); it/s per log interval "
+        f"{[round(h['iters_per_s'], 2) for h in history]}; launches {launches}")
+    log(f"evaluate on the {len(cams)} views: before {before}, after {after}")
+    densified = [x for x in lines if " densify " in x]
+    if len(densified) < 2:
+        raise AssertionError("the densify steps did not run")
+    for name, n in launches.items():
+        if n < TRAIN_ITERS:
+            raise AssertionError(f"training launched {name} {n} times")
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError("a logged loss is not finite")
+    if any(h["overflow"] for h in history):
+        raise AssertionError("instance overflow during training")
+    if not after["psnr"] > before["psnr"]:
+        raise AssertionError("training did not raise PSNR")
+    return state, cams, gt_imgs, tcfg, launches
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # the plain version's colour sum is a batched matmul: keep it full FP32
+    # the plain versions' colour sums are batched matmuls: keep them FP32
     torch.backends.cuda.matmul.allow_tf32 = False
     card = smi()
     log("device:", card, "|", torch.cuda.get_device_name(0),
@@ -192,35 +423,45 @@ def main():
 
     # 2. build
     t0 = time.time()
-    logs = _build.build_all([blend_cuda.KERNEL])
+    logs = _build.build_all(blend_cuda.KERNELS)
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # 3. kernel vs plain version
-    max_err = 0.0
+    # 3. kernels vs plain versions
+    max_err = {"blend_forward": 0.0, "blend_backward": 0.0}
+
+    def check(label, fields, binned, cfg, plain_chunk=None):
+        max_err["blend_forward"] = max(
+            max_err["blend_forward"], compare(label, fields, binned, cfg))
+        max_err["blend_backward"] = max(
+            max_err["blend_backward"],
+            compare_backward(label, fields, binned, cfg, plain_chunk))
+
     with torch.inference_mode():
         phase_small_reference()
-        gs = on_card(bench_scene(100_000, 0, -0.7, 0.7, 0.008, 0.04))
-        cam = look_at_camera(eye=[0.0, 0.0, -3.0], target=[0, 0, 0], device=DEV)
+    gs = on_card(bench_scene(100_000, 0, -0.7, 0.7, 0.008, 0.04))
+    cam = look_at_camera(eye=[0.0, 0.0, -3.0], target=[0, 0, 0], device=DEV)
+    with torch.inference_mode():
         probe = RasterConfig(width=512, height=512, max_instances=1 << 21)
         cap = autotune_max_instances(count_instances(*gs, cam, probe), 128, safety=1.25)
         cfg512 = RasterConfig(width=512, height=512, max_instances=cap)
         fields, binned = blend_inputs(gs, cam, cfg512)
-        max_err = max(max_err, compare("512x512 @ 100k", fields, binned, cfg512))
+        check("512x512 @ 100k", fields, binned, cfg512)
         ms512 = cuda_ms(lambda: blend_cuda.blend_forward(fields, binned, cfg512), 10)
         plain512 = cuda_ms(lambda: blend_forward_torch(fields, binned, cfg512), 3)
         log(f"512x512 @ 100k: kernel {ms512:.4f} ms, plain {plain512:.3f} ms")
-
+    phase_render_gradients(gs, cam, cfg512)
+    with torch.inference_mode():
         gs = on_card(bench_scene(20_000, 1, -0.7, 0.7, 0.008, 0.04))
         cfg_odd = RasterConfig(width=1000, height=600, max_instances=1 << 21)
         fields, binned = blend_inputs(gs, cam, cfg_odd)
-        max_err = max(max_err, compare("1000x600 @ 20k", fields, binned, cfg_odd))
+        check("1000x600 @ 20k", fields, binned, cfg_odd)
         del gs, fields, binned
 
-    # 4. main path: gs.ply -> load_ply -> viewer at 1920x1080
+    # 4. serving path: gs.ply -> load_ply -> viewer at 1920x1080
     arrays = bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015)
     means, scales, quats, opac, sh = arrays
     raw = {
@@ -248,11 +489,14 @@ def main():
         cfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128, max_instances=cap)
         log(f"instances per view {counts}, max_instances {cap}")
         fields, binned = blend_inputs(model, cams[0], cfg)
-        max_err = max(max_err, compare("1920x1080 @ 1M", fields, binned, cfg))
+        # the plain backward's [tiles, pixels, chunk] temporaries at 1080p
+        # take ~1 GB each at chunk 128: walk it 64 at a time
+        check("1920x1080 @ 1M", fields, binned, cfg, plain_chunk=64)
         del fields, binned
         torch.cuda.empty_cache()
 
     blend_cuda.blend_forward.launches = 0
+    blend_cuda.blend_backward.launches = 0
     server = viewer.start(lambda: model, cfg, port=0, host="127.0.0.1", device=DEV)
     try:
         base = "http://127.0.0.1:%d" % server.server_address[1]
@@ -276,17 +520,24 @@ def main():
     finally:
         server.shutdown()
         server.server_close()
-    launches = blend_cuda.blend_forward.launches
+    serve_launches = blend_cuda.blend_forward.launches
     log(f"viewer: 3 renders at {MAIN_W}x{MAIN_H} @ 1M, ms per request "
-        f"{[round(t, 1) for t in request_ms]}, kernel launches {launches}")
-    if launches < len(ORBITS):
-        raise AssertionError("the main path did not go through the kernel")
+        f"{[round(t, 1) for t in request_ms]}, forward kernel launches "
+        f"{serve_launches}, backward {blend_cuda.blend_backward.launches}")
+    if serve_launches < len(ORBITS):
+        raise AssertionError("the serving path did not go through the kernel")
 
+    # 5. training path at full width (max_instances far above the ground
+    # truth's count: binning sizes its buffers to the views' real counts)
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128, max_instances=1 << 24)
+    state, tcams, gt_imgs, tcfg, launches = phase_training(model, rcfg)
+
+    # 6. timing at 1080p @ 1M
     with torch.inference_mode():
         for c in cams:
             proj = preprocess(*model, c, cfg)
             if bool(bin_gaussians(proj.rect, proj.depths, proj.valid, cfg).overflow):
-                raise AssertionError("instance overflow on the main path")
+                raise AssertionError("instance overflow on the serving path")
         fields, binned = blend_inputs(model, cams[0], cfg)
         ms = cuda_ms(lambda: blend_cuda.blend_forward(fields, binned, cfg), 10)
         plain_ms = cuda_ms(lambda: blend_forward_torch(fields, binned, cfg), 3)
@@ -303,33 +554,92 @@ def main():
         log(f"breakdown: preprocess {pre_ms:.3f} ms, binning {bin_ms:.3f} ms, "
             f"render {render_ms:.3f} ms (device); render + PNG {png_ms:.1f} ms "
             f"(host)")
+        out = blend_cuda.blend_forward(fields, binned, cfg)
+        g = torch.randn(out.shape, generator=torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+        ms_b = cuda_ms(lambda: blend_cuda.blend_backward(fields, binned, cfg, out, g), 10)
+        plain_cfg = dataclasses.replace(cfg, chunk=64)
+        plain_ms_b = cuda_ms(
+            lambda: blend_backward_torch(fields, binned, plain_cfg, out, g), 3)
         pairs = int(blend_work_torch(fields, binned, cfg))
         n_inst = int(binned.inst_gauss.numel())
-        bytes_moved = (fields.numel() * 4 + n_inst * 4
-                       + binned.tile_ranges.numel() * 4 + 4 * MAIN_H * MAIN_W * 4)
-    bound_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    bound_ops = max(pairs * FLOPS_PER_PAIR / FP32_FLOP_S, pairs / SFU_OPS_S) * 1e3
-    bound_ms = max(bound_bytes, bound_ops)
-    log(f"{MAIN_W}x{MAIN_H} @ 1M: {n_inst} instances, {pairs} (instance, pixel) "
-        f"pairs evaluated; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, whole "
-        f"render {render_ms:.3f} ms; bound {bound_ms:.4f} ms (bytes "
-        f"{bound_bytes:.4f}, operations {bound_ops:.4f})")
+        image_bytes = 4 * MAIN_H * MAIN_W * 4
+        in_bytes = (n_inst * 9 * 4 + n_inst * 4 + binned.tile_ranges.numel() * 4)
+        del fields, binned, out, g, proj
+        torch.cuda.empty_cache()
 
-    record = {
-        "name": "blend_forward",
-        "route": "cuda",
-        "source": "frosting_tpu_torch/csrc/blend_forward.cu",
-        "replaces": "frosting_tpu/raster/blend_pallas.py:207",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bound_bytes > bound_ops else "operations",
-        "library_ms": None,  # no single PyTorch call computes this blend
-    }
+    def bound(bytes_moved, flops, sfu):
+        b = bytes_moved / HBM_BYTES_S * 1e3
+        o = max(pairs * flops / FP32_FLOP_S, pairs * sfu / SFU_OPS_S) * 1e3
+        return max(b, o), ("bytes" if b > o else "operations"), b, o
+
+    # B1 reads each instance's fields once per tile and writes [4, H, W];
+    # B2 also reads out and g_out and writes the [M, 9] rows
+    bound_f, by_f, bb_f, bo_f = bound(in_bytes + image_bytes, FLOPS_PER_PAIR, SFU_PER_PAIR)
+    bound_b, by_b, bb_b, bo_b = bound(
+        in_bytes + 2 * image_bytes + n_inst * 9 * 4, FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD)
+    log(f"{MAIN_W}x{MAIN_H} @ 1M: {n_inst} instances, {pairs} (instance, pixel) "
+        f"pairs evaluated; B1 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_f:.4f} ms (bytes {bb_f:.4f}, operations {bo_f:.4f}); B2 "
+        f"{ms_b:.4f} ms, plain {plain_ms_b:.3f} ms, bound {bound_b:.4f} ms "
+        f"(bytes {bb_b:.4f}, operations {bo_b:.4f}); whole render {render_ms:.3f} ms")
+
+    opt = opt_lib.make_gs_optimizer(TRAIN_EXTENT)
+    gt0 = torch.from_numpy(gt_imgs[0]).to(DEV)
+    parts, (f_s, b_s, o_s, g_s) = step_breakdown(
+        state, opt, tcams[0], gt0, rcfg, tcfg, reps=5)
+    step_ms = cuda_ms(lambda: gs_trainer.train_step(
+        state, tcams[0], gt0, opt, rcfg, tcfg, tcfg.sh_degree), 5)
+    log(f"train step at {MAIN_W}x{MAIN_H}, {int(state.params.num_active())} live "
+        f"Gaussians of {TRAIN_CAPACITY}, {int(b_s.num_instances)} instances: "
+        f"{step_ms:.3f} ms (CUDA events, median of 5), {1e3 / step_ms:.2f} it/s; "
+        f"parts (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.3f}")
+    with torch.inference_mode():
+        # the same launches back to back, without the step's host gaps
+        ms_fs = cuda_ms(lambda: blend_cuda.blend_forward(f_s, b_s, rcfg), 10)
+        ms_bs = cuda_ms(lambda: blend_cuda.blend_backward(f_s, b_s, rcfg, o_s, g_s), 10)
+        pairs_s = int(blend_work_torch(f_s, b_s, rcfg))
+    log(f"the step's blend inputs alone: B1 {ms_fs:.4f} ms, B2 {ms_bs:.4f} ms, "
+        f"{pairs_s} pairs")
+    del f_s, b_s, o_s, g_s
+    t = Timer()
+    t.mark("start")
+    gs_trainer.densify_step(state, torch.Generator(device=DEV).manual_seed(0),
+                            TRAIN_EXTENT, tcfg, use_size_prune=True)
+    t.mark("densify")
+    log(f"densify step: {t.parts()['densify']:.3f} ms")
+
+    records = [
+        {
+            "name": "blend_forward",
+            "route": "cuda",
+            "source": "frosting_tpu_torch/csrc/blend_forward.cu",
+            "replaces": "frosting_tpu/raster/blend_pallas.py:207",
+            "launches": launches["blend_forward"],
+            "max_abs_err": max_err["blend_forward"],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_f,
+            "bound_by": by_f,
+            "library_ms": None,  # no single PyTorch call computes this blend
+        },
+        {
+            "name": "blend_backward",
+            "route": "cuda",
+            "source": "frosting_tpu_torch/csrc/blend_backward.cu",
+            "replaces": "frosting_tpu/raster/blend_pallas.py:411",
+            "launches": launches["blend_backward"],
+            "max_abs_err": max_err["blend_backward"],
+            "ms": ms_b,
+            "plain_ms": plain_ms_b,
+            "bound_ms": bound_b,
+            "bound_by": by_b,
+            "library_ms": None,  # no PyTorch call computes any part of it
+        },
+    ]
     log(card)
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": records}))
     log(json.dumps({
         "ok": True,
         "device": {

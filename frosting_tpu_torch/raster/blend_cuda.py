@@ -1,12 +1,14 @@
-"""The forward blend: the hand-written CUDA kernel ``csrc/blend_forward.cu``
-for tensors on the GPU, its plain PyTorch version for tensors on the CPU.
+"""The blend kernels: the hand-written CUDA kernels ``csrc/blend_forward.cu``
+and ``csrc/blend_backward.cu`` for tensors on the GPU, their plain PyTorch
+versions (blend_torch.py) for tensors on the CPU.
 
-The kernel replaces ``frosting_tpu/raster/blend_pallas.py::
-blend_forward_pallas``. It is bound by FP32 and SFU (``exp``) throughput over
-the (instance, tile-pixel) pairs, not by bytes: each instance's 36 B is read
-once per tile and reused by all of the tile's pixels (see the source's
-header for the design). It is built with nvcc at the first launch
-(``frosting_tpu_torch/_build.py``).
+The kernels replace ``frosting_tpu/raster/blend_pallas.py::
+blend_forward_pallas`` and ``blend_backward_pallas``. Both are bound by FP32
+and SFU (``exp``, reciprocal) throughput over the (instance, tile-pixel)
+pairs, not by bytes: each instance's 36 B is read once per tile and reused
+by all of the tile's pixels (see the sources' headers for the designs).
+They are built with nvcc at the first launch (``frosting_tpu_torch/
+_build.py``).
 """
 
 from __future__ import annotations
@@ -17,19 +19,25 @@ import torch
 
 from frosting_tpu_torch import _build
 from frosting_tpu_torch.raster.binning import Binned
-from frosting_tpu_torch.raster.blend_torch import blend_forward_torch
+from frosting_tpu_torch.raster.blend_torch import (
+    blend_backward_torch,
+    blend_forward_torch,
+)
 from frosting_tpu_torch.raster.config import INSTANCE_WIDTH, RasterConfig
 
-KERNEL = "blend_forward"
+KERNELS = ("blend_forward", "blend_backward")
 MAX_THREADS_PER_BLOCK = 1024
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.blend_forward_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _launcher(name: str, n_pointers: int):
+    """The C launch function of csrc/<name>.cu: n_pointers device pointers,
+    six ints (width, height, tiles_x, n_tiles, tile_w, tile_h), the stream."""
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -56,6 +64,44 @@ def blend_forward(
     synchronising, or raise."""
     if fields.device.type == "cpu":
         return blend_forward_torch(fields, binned, cfg)
+    _check_inputs(fields, binned, cfg)
+    out = torch.empty((4, cfg.height, cfg.width), dtype=torch.float32,
+                      device=fields.device)
+    _launch("blend_forward", fields, binned.inst_gauss, binned.tile_ranges, out,
+            cfg=cfg)
+    blend_forward.launches += 1
+    return out
+
+
+def blend_backward(
+    fields: torch.Tensor,  # [N + 1, 9] float32, the forward's input
+    binned: Binned,
+    cfg: RasterConfig,
+    out: torch.Tensor,  # [4, H, W] float32, the forward's result
+    g_out: torch.Tensor,  # [4, H, W] float32, the cotangent on out
+) -> torch.Tensor:
+    """Per-instance gradient rows [M, 9], aligned with binned.inst_gauss
+    (see blend_torch.blend_backward_torch). CPU tensors take the plain
+    PyTorch version; CUDA tensors launch the kernel on the current stream,
+    without synchronising, or raise."""
+    if fields.device.type == "cpu":
+        return blend_backward_torch(fields, binned, cfg, out, g_out)
+    _check_inputs(fields, binned, cfg)
+    if cfg.tile_pixels % 32:
+        raise ValueError(f"tile {cfg.tile_w}x{cfg.tile_h} is not whole warps")
+    image = (4, cfg.height, cfg.width)
+    _check("out", out, torch.float32, image, fields.device)
+    _check("g_out", g_out, torch.float32, image, fields.device)
+    # rows of instances past every pixel's stop are never written
+    grads = torch.zeros((binned.inst_gauss.shape[0], INSTANCE_WIDTH),
+                        dtype=torch.float32, device=fields.device)
+    _launch("blend_backward", fields, binned.inst_gauss, binned.tile_ranges,
+            out, g_out, grads, cfg=cfg)
+    blend_backward.launches += 1
+    return grads
+
+
+def _check_inputs(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
     if fields.device.type != "cuda":
         raise ValueError(f"no blend kernel for device {fields.device}")
     dev = fields.device
@@ -69,24 +115,25 @@ def blend_forward(
             f"tile {cfg.tile_w}x{cfg.tile_h} exceeds {MAX_THREADS_PER_BLOCK} "
             "threads per block"
         )
-    lib = _library()
-    out = torch.empty((4, cfg.height, cfg.width), dtype=torch.float32, device=dev)
+
+
+def _launch(name: str, *tensors, cfg: RasterConfig) -> None:
+    """Launch csrc/<name>.cu on the tensors' current stream; raise on a
+    CUDA error."""
+    fn = _launcher(name, len(tensors))
+    dev = tensors[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_forward_launch(
-            fields.data_ptr(),
-            binned.inst_gauss.data_ptr(),
-            binned.tile_ranges.data_ptr(),
-            out.data_ptr(),
+        err = fn(
+            *(t.data_ptr() for t in tensors),
             cfg.width, cfg.height, cfg.tiles_x, cfg.n_tiles,
             cfg.tile_w, cfg.tile_h,
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"blend_forward kernel launch failed: CUDA error {err}")
-    blend_forward.launches += 1
-    return out
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 # Kernel launches since the count was last reset (CPU calls are not counted).
 blend_forward.launches = 0
+blend_backward.launches = 0

@@ -1,8 +1,8 @@
-"""Plain PyTorch forward blend: front-to-back alpha compositing of each
-tile's depth-ordered instance run.
+"""Plain PyTorch blend: front-to-back alpha compositing of each tile's
+depth-ordered instance run, and its backward.
 
-Counterpart of the forward halves of ``frosting_tpu/raster/chunk_math.py``
-(``_chunk_common``/``forward_chunk``) and ``blend_jax.py``, with the same
+Counterpart of ``frosting_tpu/raster/chunk_math.py`` (``_chunk_common``,
+``forward_chunk``, ``backward_chunk``) and ``blend_jax.py``, with the same
 semantics:
 
   * alpha = min(0.99, op * exp(power)), zeroed where power > 0 or the raw
@@ -15,11 +15,15 @@ It runs on every tile at once and walks the tile runs ``cfg.chunk``
 instances at a time, carrying two transmittances per pixel: ``t_all``, the
 product over every alpha seen (it drives the stop test and, being
 monotone, keeps a stopped pixel stopped), and ``t_mask``, the transmittance
-after the last contributing Gaussian. This is the CPU path and the on-card
-yardstick of the CUDA kernel (blend_cuda.py).
+after the last contributing Gaussian. The backward re-walks the runs in
+forward order with JAX's suffix trick (see ``blend_backward_torch``). These
+are the CPU path and the on-card yardsticks of the CUDA kernels
+(blend_cuda.py).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -27,30 +31,50 @@ from frosting_tpu_torch.raster.binning import Binned
 from frosting_tpu_torch.raster.config import (
     ALPHA_CLAMP,
     ALPHA_CUTOFF,
+    INSTANCE_WIDTH,
     TRANSMITTANCE_EPS,
     RasterConfig,
 )
 
 
+class _Chunk(NamedTuple):
+    """One step of the walk over every tile's run: [T, K] per slot, [T, P, K]
+    per (pixel, instance) pair, [T, P, 1] per pixel."""
+
+    in_run: torch.Tensor  # [T, K] slot lies inside the tile's run
+    idx: torch.Tensor  # [T, K] index into inst_gauss of the slot (0 outside)
+    f: torch.Tensor  # [T, K, 9] the slots' fields (sentinel row outside)
+    dx: torch.Tensor  # [T, P, K] mean2d.x - pixel x
+    dy: torch.Tensor  # [T, P, K]
+    power: torch.Tensor  # [T, P, K]
+    raw: torch.Tensor  # [T, P, K] op * exp(power), before the clamp
+    alpha: torch.Tensor  # [T, P, K]
+    t_before: torch.Tensor  # [T, P, K] transmittance before the pair
+    m: torch.Tensor  # [T, P, K] the instance contributes to the pixel
+    incl: torch.Tensor  # [T, P, K] inclusive cumprod of 1 - alpha
+    t_all: torch.Tensor  # [T, P, 1] carried transmittance before the chunk
+
+
+def _tile_pixels(cfg: RasterConfig, dev):
+    """Pixel centres (x, y) at integer coordinates, each [T, P]."""
+    sub = torch.arange(cfg.tile_pixels, device=dev)
+    tile = torch.arange(cfg.n_tiles, device=dev)
+    x = (tile % cfg.tiles_x)[:, None] * cfg.tile_w + sub % cfg.tile_w
+    y = (tile // cfg.tiles_x)[:, None] * cfg.tile_h + sub // cfg.tile_w
+    return x, y
+
+
 def _walk(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
-    """Yield, chunk by chunk, (in_run, f, alpha, t_before, m, incl, t_all)
-    for every tile: in_run [T, K] marks slots inside the tile's run, f
-    [T, K, 9] holds their fields, alpha/t_before/m/incl are [T, P, K] per
-    (pixel, instance) terms (m: the instance contributes) and t_all
-    [T, P, 1] is the carried transmittance before the chunk."""
+    """Yield a _Chunk for every ``cfg.chunk`` instances of the tile runs."""
     dev = fields.device
     n_tiles, p, k = cfg.n_tiles, cfg.tile_pixels, cfg.chunk
     sentinel = fields.shape[0] - 1  # the all-zero row of pack_fields
     starts = binned.tile_ranges[:, 0].long()
     lens = binned.tile_ranges[:, 1].long() - starts
     inst_gauss = binned.inst_gauss.long()
-    sub = torch.arange(p, device=dev)
-    tile = torch.arange(n_tiles, device=dev)
-    # pixel centres at integer coordinates, [T, P, 1]
-    px = ((tile % cfg.tiles_x)[:, None] * cfg.tile_w + sub % cfg.tile_w)
-    py = ((tile // cfg.tiles_x)[:, None] * cfg.tile_h + sub // cfg.tile_w)
-    px = px.to(fields.dtype)[..., None]
-    py = py.to(fields.dtype)[..., None]
+    x, y = _tile_pixels(cfg, dev)
+    px = x.to(fields.dtype)[..., None]  # [T, P, 1]
+    py = y.to(fields.dtype)[..., None]
     t_all = torch.ones((n_tiles, p, 1), dtype=fields.dtype, device=dev)
     slot = torch.arange(k, device=dev)
     max_len = int(lens.max()) if n_tiles else 0
@@ -73,8 +97,18 @@ def _walk(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
         excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], 2)
         t_before = t_all * excl
         m = (t_before * one_minus >= TRANSMITTANCE_EPS) & in_run[:, None, :]
-        yield in_run, f, alpha, t_before, m, incl, t_all
+        yield _Chunk(in_run, idx, f, dx, dy, power, raw, alpha, t_before, m,
+                     incl, t_all)
         t_all = t_all * incl[..., -1:]
+
+
+def _to_tiles(img: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """[C, H, W] -> [T, P, C], zero past the image edge."""
+    c = img.shape[0]
+    pad = img.new_zeros((c, cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w))
+    pad[:, : cfg.height, : cfg.width] = img
+    t = pad.reshape(c, cfg.tiles_y, cfg.tile_h, cfg.tiles_x, cfg.tile_w)
+    return t.permute(1, 3, 2, 4, 0).reshape(cfg.n_tiles, cfg.tile_pixels, c)
 
 
 def blend_forward_torch(
@@ -86,12 +120,12 @@ def blend_forward_torch(
     n_tiles, p = cfg.n_tiles, cfg.tile_pixels
     color = fields.new_zeros((n_tiles, p, 3))
     t_mask = fields.new_ones((n_tiles, p, 1))
-    for _in_run, f, alpha, t_before, m, incl, t_all in _walk(fields, binned, cfg):
-        w = torch.where(m, alpha * t_before, 0.0)  # [T, P, K]
-        color = color + torch.bmm(w, f[..., 6:9])
+    for c in _walk(fields, binned, cfg):
+        w = torch.where(c.m, c.alpha * c.t_before, 0.0)  # [T, P, K]
+        color = color + torch.bmm(w, c.f[..., 6:9])
         # transmittance after each contributing Gaussian; it only falls
         # along the walk, so the minimum is the last one
-        v = torch.where(m, t_all * incl, 1.0)
+        v = torch.where(c.m, c.t_all * c.incl, 1.0)
         t_mask = torch.minimum(t_mask, torch.amin(v, dim=2, keepdim=True))
     out = torch.cat([color, t_mask], dim=2)  # [T, P, 4]
     out = out.reshape(cfg.tiles_y, cfg.tiles_x, cfg.tile_h, cfg.tile_w, 4)
@@ -99,6 +133,71 @@ def blend_forward_torch(
         4, cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w
     )
     return out[:, : cfg.height, : cfg.width].contiguous()
+
+
+def blend_backward_torch(
+    fields: torch.Tensor,  # [N + 1, 9] pack_fields output
+    binned: Binned,
+    cfg: RasterConfig,
+    out: torch.Tensor,  # [4, H, W] the forward's result, before background
+    g_out: torch.Tensor,  # [4, H, W] the loss's cotangent on out
+) -> torch.Tensor:
+    """Per-instance gradient rows [M, 9], aligned with ``binned.inst_gauss``:
+    (dmean2d x, y, dconic a, b, c, dopacity, dcolor r, g, b).
+
+    A forward-order re-walk (``chunk_math.backward_chunk``). With u = g . c
+    for the instance's colour c, w = alpha * T its weight and gS the part of
+    g . C_total that the instances behind it paint,
+      dalpha = u * T - gS / (1 - alpha) - g_T * T_final / (1 - alpha),
+    where gS = g . C_total - (g . C_prefix + u * w), the prefix taken
+    inclusively. dpower = dalpha * alpha where the pair contributes, is live
+    and unclamped. The spatial terms are sums over the tile's pixels of
+    dpower against dx, dy and their products; dopacity = sum dpower / op
+    (dalpha * exp(power) where alpha = op * exp(power)). Pixels past the
+    image edge carry zero cotangent; instances past every pixel's stop get
+    zero rows."""
+    rows_out = fields.new_zeros((binned.inst_gauss.shape[0], INSTANCE_WIDTH))
+    fwd = _to_tiles(out, cfg)  # [T, P, 4]
+    g = _to_tiles(g_out, cfg)
+    g_color, g_tmask = g[..., :3], g[..., 3:4]
+    gc_total = torch.sum(g_color * fwd[..., :3], dim=2, keepdim=True)
+    g_tfinal = g_tmask * fwd[..., 3:4]  # [T, P, 1]
+    gc_pre = torch.zeros_like(gc_total)
+    for c in _walk(fields, binned, cfg):
+        col = c.f[:, None, :, 6:9]  # [T, 1, K, 3]
+        u = (g_color[..., 0:1] * col[..., 0] + g_color[..., 1:2] * col[..., 1]
+             + g_color[..., 2:3] * col[..., 2])  # [T, P, K]
+        w = torch.where(c.m, c.alpha * c.t_before, 0.0)
+        cum = torch.cumsum(u * w, dim=2)
+        g_suffix = gc_total - (gc_pre + cum)
+        inv = 1.0 / (1.0 - c.alpha)
+        dalpha = torch.where(
+            c.m, u * c.t_before - g_suffix * inv - g_tfinal * inv, 0.0
+        )
+        live = (c.power <= 0.0) & (c.raw >= ALPHA_CUTOFF) & (c.raw < ALPHA_CLAMP)
+        dp = torch.where(live, dalpha * c.alpha, 0.0)
+        s0 = dp.sum(dim=1)  # [T, K]
+        sx = (dp * c.dx).sum(dim=1)
+        sy = (dp * c.dy).sum(dim=1)
+        sxx = (dp * c.dx * c.dx).sum(dim=1)
+        syy = (dp * c.dy * c.dy).sum(dim=1)
+        sxy = (dp * c.dx * c.dy).sum(dim=1)
+        ca, cb, cc, op = c.f[..., 2], c.f[..., 3], c.f[..., 4], c.f[..., 5]
+        dcol = torch.bmm(w.transpose(1, 2), g_color)  # [T, K, 3]
+        rows = torch.cat([
+            torch.stack([
+                -(ca * sx + cb * sy),
+                -(cc * sy + cb * sx),
+                -0.5 * sxx,
+                -sxy,
+                -0.5 * syy,
+                s0 / torch.where(op == 0.0, 1.0, op),
+            ], dim=2),
+            dcol,
+        ], dim=2)  # [T, K, 9]
+        rows_out[c.idx[c.in_run]] = rows[c.in_run]
+        gc_pre = gc_pre + cum[..., -1:]
+    return rows_out
 
 
 def blend_work_torch(
@@ -111,14 +210,11 @@ def blend_work_torch(
     n_tiles, p = cfg.n_tiles, cfg.tile_pixels
     work = torch.zeros((n_tiles, p), dtype=torch.int64, device=fields.device)
     stopped = torch.zeros((n_tiles, p), dtype=torch.bool, device=fields.device)
-    for in_run, _f, _a, _tb, m, _incl, _ta in _walk(fields, binned, cfg):
+    for c in _walk(fields, binned, cfg):
         # m is true on a prefix of each pixel's run and false from its stop
-        work += m.sum(dim=2)
-        stopped |= (~m & in_run[:, None, :]).any(dim=2)
+        work += c.m.sum(dim=2)
+        stopped |= (~c.m & c.in_run[:, None, :]).any(dim=2)
     work += stopped.long()
-    sub = torch.arange(p, device=fields.device)
-    tile = torch.arange(n_tiles, device=fields.device)
-    x = (tile % cfg.tiles_x)[:, None] * cfg.tile_w + sub % cfg.tile_w
-    y = (tile // cfg.tiles_x)[:, None] * cfg.tile_h + sub // cfg.tile_w
+    x, y = _tile_pixels(cfg, fields.device)
     inside = (x < cfg.width) & (y < cfg.height)
     return torch.sum(work * inside)

@@ -1,8 +1,15 @@
-"""Top-level render: preprocess -> bin -> blend -> compose.
+"""Top-level differentiable render: preprocess -> bin -> blend -> compose.
 
-Counterpart of ``frosting_tpu/raster/render.py``, forward only: on the GPU
-the blend is the CUDA kernel of ``blend_cuda.py``, which has no backward
-yet, so a render that would need gradients there raises.
+Counterpart of ``frosting_tpu/raster/render.py``. The autograd boundary
+(``BlendFunction``) wraps only binning and the blend, as JAX's custom VJP
+``_blend`` does: its backward runs the backward blend (the CUDA kernel
+``csrc/blend_backward.cu`` on the GPU, the plain version on the CPU) and
+sums the per-instance gradient rows into per-Gaussian rows with one
+``index_add_`` over the instances' Gaussian ids (JAX's payload sorts and
+prefix differences, ``render.py:117-201``, exist for the TPU). On the GPU
+that sum is taken with atomics, so its order, and the last bits of a
+Gaussian's gradient, vary from run to run. Gradients through preprocess
+come from autograd.
 """
 
 from __future__ import annotations
@@ -12,8 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from frosting_tpu_torch.cameras import Camera
-from frosting_tpu_torch.raster.binning import bin_gaussians
-from frosting_tpu_torch.raster.blend_cuda import blend_forward
+from frosting_tpu_torch.raster.binning import Binned, bin_gaussians
+from frosting_tpu_torch.raster.blend_cuda import blend_backward, blend_forward
 from frosting_tpu_torch.raster.config import RasterConfig
 from frosting_tpu_torch.raster.preprocess import Projected, pack_fields, preprocess
 
@@ -45,16 +52,32 @@ def autotune_max_instances(
     return -(-cap // chunk) * chunk
 
 
-def _check_no_grad(proj: Projected) -> None:
-    """Every differentiable input of render reaches one of these fields."""
-    fields = (proj.means2d, proj.conics, proj.colors, proj.opacities)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in fields):
-        raise NotImplementedError(
-            "render on CUDA is forward-only: the backward blend kernel "
-            "(port of blend_pallas.py::blend_backward_pallas) is the next "
-            "slice of the port; render under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
+class BlendFunction(torch.autograd.Function):
+    """fields [N + 1, 9] (pack_fields) -> (out [4, H, W], num_instances,
+    overflow), differentiable in fields. rect, depths and valid come in
+    detached: binning is piecewise constant in them. ``forward_fn`` and
+    ``backward_fn`` are the blend pair: the device-dispatching wrappers of
+    blend_cuda.py on the render path; the plain versions where a check holds
+    the kernels against them on the card."""
+
+    @staticmethod
+    def forward(ctx, fields, rect, depths, valid, cfg, forward_fn, backward_fn):
+        binned = bin_gaussians(rect, depths, valid, cfg)
+        out = forward_fn(fields, binned, cfg)
+        ctx.save_for_backward(fields, out, binned.inst_gauss, binned.tile_ranges)
+        ctx.cfg, ctx.backward_fn = cfg, backward_fn
+        ctx.mark_non_differentiable(binned.num_instances, binned.overflow)
+        return out, binned.num_instances, binned.overflow
+
+    @staticmethod
+    def backward(ctx, g_out, _g_num, _g_overflow):
+        fields, out, inst_gauss, tile_ranges = ctx.saved_tensors
+        binned = Binned(inst_gauss, tile_ranges, None, None)
+        rows = ctx.backward_fn(fields, binned, ctx.cfg, out, g_out.contiguous())
+        # the sentinel row (last) is no instance's Gaussian: it stays zero
+        dfields = torch.zeros_like(fields)
+        dfields.index_add_(0, inst_gauss.long(), rows)
+        return dfields, None, None, None, None, None, None
 
 
 def render(
@@ -74,8 +97,9 @@ def render(
 ) -> RenderOutput:
     """Gaussian-splat render of one camera, on the device of the inputs.
 
-    `means2d_probe`: optional zeros [N, 2] added to the projected 2D means
-    (the JAX reference reads screen-space gradients off it).
+    `means2d_probe`: optional zeros [N, 2] added to the projected 2D means;
+    its gradient is the screen-space positional gradient that densification
+    reads.
     """
     proj = preprocess(
         means3d, scales, quats, opacities, sh, camera, cfg,
@@ -94,17 +118,17 @@ def render_projected(
 ) -> RenderOutput:
     """Blend an already-projected Gaussian set."""
     dev = proj.means2d.device
-    if dev.type == "cuda":
-        _check_no_grad(proj)
     bg = torch.zeros(3, device=dev) if bg is None else bg.to(dev)
-    binned = bin_gaussians(proj.rect, proj.depths, proj.valid, cfg)
-    out = blend_forward(pack_fields(proj), binned, cfg)
+    out, num_instances, overflow = BlendFunction.apply(
+        pack_fields(proj), proj.rect.detach(), proj.depths.detach(),
+        proj.valid.detach(), cfg, blend_forward, blend_backward,
+    )
     t_final = out[3]
     image = out[:3] + t_final[None] * bg[:, None, None]
     return RenderOutput(
         image=image,
         t_final=t_final,
         radii=proj.radii,
-        num_instances=binned.num_instances,
-        overflow=binned.overflow,
+        num_instances=num_instances,
+        overflow=overflow,
     )

@@ -55,6 +55,62 @@ def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
 
 
+def mean_knn_dist_sq(points: np.ndarray, k: int = 3) -> np.ndarray:
+    """Mean squared distance to the k nearest neighbours, on the host: the
+    scale initialiser (replaces simple-knn distCUDA2). Exact, by
+    scipy's cKDTree; runs once at scene creation."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    d, _ = tree.query(points, k=k + 1, workers=-1)
+    return (d[:, 1:] ** 2).mean(axis=1)
+
+
+def create_from_pcd(
+    points: np.ndarray,  # [N, 3]
+    colors: np.ndarray,  # [N, 3] in [0, 1]
+    capacity: int,
+    sh_degree: int = 3,
+    init_opacity: float = 0.1,
+    device="cuda",
+) -> GaussianParams:
+    """Reference create_from_pcd (gaussian_model.py:124-147): SH DC from
+    RGB, isotropic log-scale from the mean 3-NN distance, opacity logit of
+    0.1. Dead slots are parked far away (means 1e6) with tiny scales
+    (log -10), opacity logit -15 and the identity quaternion."""
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"point cloud ({n}) exceeds capacity ({capacity})")
+    k = sh_ops.num_sh_coeffs(sh_degree)
+
+    dist2 = np.maximum(mean_knn_dist_sq(points), 1e-7)
+    scales_log = np.repeat(np.log(np.sqrt(dist2))[:, None], 3, axis=1)
+
+    def park(a, fill=0.0):
+        out = np.full((capacity,) + a.shape[1:], fill, np.float32)
+        out[:n] = a
+        return out
+
+    quats = np.zeros((capacity, 4), np.float32)
+    quats[:, 0] = 1.0
+    mask = np.zeros((capacity,), np.float32)
+    mask[:n] = 1.0
+    sh_dc = sh_ops.rgb_to_sh(torch.from_numpy(np.asarray(colors, np.float32)))
+    logit = float(inverse_sigmoid(torch.tensor(init_opacity, dtype=torch.float32)))
+    return params_from_numpy(
+        {
+            "means3d": park(np.asarray(points, np.float32), fill=1e6),
+            "sh_dc": park(sh_dc.numpy()[:, None, :]),
+            "sh_rest": park(np.zeros((n, k - 1, 3), np.float32)),
+            "scales_log": park(scales_log, fill=-10.0),
+            "quats_raw": quats,
+            "opacities_raw": park(np.full((n,), logit), fill=-15.0),
+            "mask": mask,
+        },
+        device=device,
+    )
+
+
 def params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> GaussianParams:
     """GaussianParams from {field: array}, e.g. the JAX package's parameters
     as ``{f.name: np.asarray(getattr(p, f.name)) for f in fields(p)}``."""

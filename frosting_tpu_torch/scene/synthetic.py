@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from frosting_tpu_torch.cameras import Camera, look_at_camera
+from frosting_tpu_torch.ops import sh as sh_ops
 from frosting_tpu_torch.raster import RasterConfig, render
 
 
@@ -72,3 +73,20 @@ def render_gt_images(
                 for c in cameras
             ]
         )
+
+
+def degraded_init(
+    gt_gaussians, keep: float = 0.3, jitter: float = 0.05, seed: int = 1
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Subsample and jitter the ground-truth cloud as a training starting
+    point (in place of a COLMAP seed cloud): (points [n, 3], colours [n, 3])
+    as float32 numpy."""
+    means, _scales, _quats, _opac, sh = (
+        torch.as_tensor(a).detach().cpu() for a in gt_gaussians
+    )
+    rng = np.random.default_rng(seed)
+    n = means.shape[0]
+    idx = rng.choice(n, int(n * keep), replace=False)
+    pts = means.numpy()[idx] + rng.normal(scale=jitter, size=(len(idx), 3))
+    cols = torch.clamp(sh_ops.sh_to_rgb(sh[torch.from_numpy(idx), 0]), 0.0, 1.0)
+    return pts.astype(np.float32), cols.numpy().astype(np.float32)

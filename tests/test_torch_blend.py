@@ -131,12 +131,13 @@ def test_empty_scene_blends_to_transparent():
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     """The library name follows the source's content; without nvcc the
     build raises instead of falling back."""
-    lib = _build.library_path(blend_cuda.KERNEL)
-    assert lib.parent == _build.BUILD_DIR
-    assert lib.name.startswith("libblend_forward-") and lib.suffix == ".so"
+    for name in blend_cuda.KERNELS:
+        lib = _build.library_path(name)
+        assert lib.parent == _build.BUILD_DIR
+        assert lib.name.startswith(f"lib{name}-") and lib.suffix == ".so"
     if shutil.which("nvcc"):
         pytest.skip("nvcc is installed here")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build_all([blend_cuda.KERNEL])
+        _build.build_all(blend_cuda.KERNELS)

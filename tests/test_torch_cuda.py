@@ -1,6 +1,7 @@
-"""The CUDA forward blend kernel on the card against its plain PyTorch
-version. Marked `gpu`: every test skips without a CUDA device. This file
-imports no JAX, so it also runs on a machine without it:
+"""The CUDA blend kernels on the card against their plain PyTorch versions,
+the render's gradients through them, and one train step. Marked `gpu`: every
+test skips without a CUDA device. This file imports no JAX, so it also runs
+on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 """
@@ -10,12 +11,18 @@ import pytest
 import torch
 
 from frosting_tpu_torch.cameras import look_at_camera
-from frosting_tpu_torch.raster import RasterConfig, render
+from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.raster import blend_cuda
 from frosting_tpu_torch.raster.binning import bin_gaussians
-from frosting_tpu_torch.raster.blend_torch import blend_forward_torch
+from frosting_tpu_torch.raster.blend_torch import (
+    blend_backward_torch,
+    blend_forward_torch,
+)
 from frosting_tpu_torch.raster.preprocess import pack_fields, preprocess
+from frosting_tpu_torch.raster.render import BlendFunction
+from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import gaussian_blob_scene
+from frosting_tpu_torch.train import gs_trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -65,13 +72,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         )
 
 
-def test_render_refuses_gradients_on_cuda(cuda):
-    gs = [t.clone().requires_grad_(i == 0) for i, t in
-          enumerate(gaussian_blob_scene(n=100, seed=2, device=cuda))]
+def _cotangent(out, seed=0):
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    return torch.randn(out.shape, generator=gen, device=out.device)
+
+
+@pytest.mark.parametrize("size", [(256, 256), (333, 197)], ids=["256", "333x197"])
+def test_backward_kernel_matches_plain_version(cuda, size):
+    fields, binned, cfg = _inputs(cuda, *size, n=20_000)
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    g = _cotangent(out)
+    before = blend_cuda.blend_backward.launches
+    rows = blend_cuda.blend_backward(fields, binned, cfg, out, g)
+    torch.cuda.synchronize()
+    assert blend_cuda.blend_backward.launches == before + 1
+    ref = blend_backward_torch(fields, binned, cfg, out, g)
+    assert rows.shape == ref.shape == (binned.inst_gauss.shape[0], 9)
+    assert torch.isfinite(rows).all()
+    # the kernel sums each instance's pixels in another order, and a pixel
+    # on the stop threshold may stop one Gaussian apart: at most 0.1% of
+    # values past atol/rtol 1e-5 (relative to the largest row value)
+    err = (rows - ref).abs()
+    off = err > 1e-5 * ref.abs().max() + 1e-5 * ref.abs()
+    assert off.float().mean().item() <= 1e-3
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    fields, binned, cfg = _inputs(cuda, 64, 64, n=500)
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    g = _cotangent(out)
+    with pytest.raises(TypeError):
+        blend_cuda.blend_backward(fields, binned, cfg, out, g.double())
+    with pytest.raises(ValueError):
+        blend_cuda.blend_backward(fields, binned, cfg, out[:, :32], g)
+    with pytest.raises(ValueError):
+        blend_cuda.blend_backward(fields, binned, cfg, out, g.cpu())
+    with pytest.raises(ValueError):
+        blend_cuda.blend_backward(
+            fields, binned, cfg, out, g.transpose(1, 2).contiguous().transpose(1, 2)
+        )
+
+
+def test_render_gradients_match_the_plain_versions(cuda):
+    gs = gaussian_blob_scene(n=5_000, seed=2, device=cuda)
     cam = look_at_camera(eye=[0, -3, 0.5], target=[0, 0, 0], up=(0, 0, 1), device=cuda)
-    cfg = RasterConfig(width=64, height=64)
-    with pytest.raises(NotImplementedError):
-        render(*gs, cam, cfg)
-    with torch.no_grad():
-        img = render(*gs, cam, cfg).image
-    assert np.isfinite(img.cpu().numpy()).all()
+    cfg = RasterConfig(width=200, height=150, max_instances=1 << 20)
+    target = torch.rand((3, 150, 200), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+
+    def grads(blend_fns):
+        leaves = [t.clone().requires_grad_(True) for t in gs]
+        proj = preprocess(*leaves, cam, cfg)
+        out, _, _ = BlendFunction.apply(
+            pack_fields(proj), proj.rect, proj.depths, proj.valid, cfg, *blend_fns
+        )
+        image = out[:3] + out[3][None] * bg[:, None, None]
+        loss = torch.mean((image - target) ** 2) + 0.1 * torch.mean(out[3])
+        return torch.autograd.grad(loss, leaves)
+
+    got = grads((blend_cuda.blend_forward, blend_cuda.blend_backward))
+    ref = grads((blend_forward_torch, blend_backward_torch))
+    for a, b in zip(got, ref):
+        scale = b.abs().max() + 1e-8
+        assert ((a - b).abs() / scale).max().item() <= 5e-4
+
+
+def test_one_train_step_on_the_card(cuda):
+    rcfg = RasterConfig(width=128, height=96, max_instances=1 << 18)
+    gt = gaussian_blob_scene(n=2_000, seed=0, device=cuda)
+    cams = synthetic.camera_ring(n_cams=2, radius=3.0, device=cuda)
+    gt_imgs = synthetic.render_gt_images(gt, cams, rcfg, np.zeros(3, np.float32))
+    pts, cols = synthetic.degraded_init(gt, keep=0.5, jitter=0.03)
+    cfg = gs_trainer.GSTrainConfig(capacity=2048)
+    state, opt = gs_trainer.init_state(pts, cols, 3.3, cfg, device=cuda)
+    before = state.params.means3d.clone()
+    launches = blend_cuda.blend_backward.launches
+    state, m = gs_trainer.train_step(
+        state, cams[0], torch.from_numpy(gt_imgs[0]).to(cuda), opt, rcfg, cfg, 0
+    )
+    assert blend_cuda.blend_backward.launches == launches + 1
+    assert np.isfinite(float(m["loss"])) and not bool(m["overflow"])
+    assert not torch.equal(state.params.means3d, before)
+    assert int(state.opt_state.count["means3d"]) == 1

@@ -49,6 +49,9 @@ def test_package_imports_without_jax():
         "sys.modules['jaxlib'] = None\n"
         "import frosting_tpu_torch.raster.render, frosting_tpu_torch.utils.viewer\n"
         "import frosting_tpu_torch.scene.synthetic, frosting_tpu_torch.scene.gaussians\n"
+        "import frosting_tpu_torch.train.gs_trainer, frosting_tpu_torch.ops.ssim\n"
+        "import frosting_tpu_torch.train.checkpoint, frosting_tpu_torch.utils.profiling\n"
+        "assert 'optax' not in sys.modules\n"
         "assert not any(m == 'frosting_tpu' or m.startswith('frosting_tpu.')\n"
         "               for m in sys.modules)\n"
     )

@@ -21,6 +21,12 @@ from frosting_tpu_torch.raster import RasterConfig, render
 from frosting_tpu_torch.raster.preprocess import preprocess
 from frosting_tpu_torch.raster.reference import render_naive
 
+# The suite runs in several worker processes on a few cores: torch's default
+# of one intra-op thread per core oversubscribes them (spinning OpenMP
+# threads slowed a 0.1 s test to 18 s under 6 workers). Every worker imports
+# this module while collecting, so this holds for all of them.
+torch.set_num_threads(1)
+
 BG = np.asarray([0.1, 0.2, 0.3], np.float32)
 EYE = [0.2, -0.3, -2.8]
 # Stop-threshold flips: JAX sums colour per chunk with a matmul and the
