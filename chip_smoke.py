@@ -10,9 +10,13 @@ Phases (any failure raises and exits nonzero):
   3. kernels vs plain: hold the CUDA forward blend (B1) and backward blend
      (B2) against their plain PyTorch versions on the same inputs (bench.py's
      512x512 @ 100k scene, an odd 1000x600 @ 20k size with partial edge
-     tiles), the port's render on a small scene against the per-pixel
-     oracle, and the render's gradients through B1 + B2 + index_add_
-     against the same loss's gradients through the plain versions;
+     tiles, an adversarial scene of footprints past the tile, degenerate
+     conics, needles whose float32 det cancels, opacities at the cutoff and
+     a run of 12k instances), the port's render on a small scene against
+     the per-pixel oracle, and the render's gradients through B1 + B2 +
+     index_add_ against the same loss's gradients through the plain
+     versions. Every B2 check launches it twice and requires bitwise-equal
+     rows;
   4. serving path at full width: scripts/bench_1080p.py's scene (1M
      Gaussians, SH degree 3, seed 0) written as gs.ply, loaded back onto the
      card and served by the port's viewer at 1920x1080: three GET /render
@@ -21,10 +25,12 @@ Phases (any failure raises and exits nonzero):
   5. training path at full width: that scene, rendered from 4 orbit views,
      is the ground truth; gs_trainer.train runs 40 iterations at 1920x1080
      from its jittered means (create_from_pcd, capacity 2^21), with two
-     densify steps, and evaluate's PSNR must rise;
+     densify steps, and evaluate's PSNR must rise; the four views, re-binned
+     with the final state, must not overflow;
   6. timing: B1, B2 and their plain versions at 1080p @ 1M with CUDA events,
      their bounds from this run's data, a train step broken into its parts,
-     and one densify step.
+     B1 and B2 held against their plain versions and timed on the step's
+     own blend inputs, and one densify step.
 Both main paths (4 and 5) reset the kernels' launch counts just before and
 read them just after. The line before the last is the JSON kernels record;
 the last line is {"ok": true, "device": {...}}.
@@ -65,6 +71,7 @@ from frosting_tpu_torch.raster.render import (
 from frosting_tpu_torch.ops.ssim import l1_loss, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
+from frosting_tpu_torch.scene.synthetic import adversarial_blend_inputs
 from frosting_tpu_torch.train import gs_trainer
 from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import viewer
@@ -87,9 +94,12 @@ FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD = 42, 2
 # the two sum in another order). A forward flip moves a pixel by at most
 # alpha * T <= 1e-2. A backward value is a sum over the tile's pixels, so it
 # is compared normalised by its column's largest magnitude; a flip there
-# moves one pixel's term of one or two instances, which has no small bound.
+# moves one pixel's term of one or two instances (18 values), which has no
+# small bound, so far fewer may be off: 1e-5 of the values, or 18 where
+# that is more (the runs show at most 3.3e-7).
 ATOL = RTOL = 1e-5
 FLIP_SHARE, FLIP_BOUND = 1e-3, 1e-2
+BWD_OFF_SHARE, BWD_OFF_MIN = 1e-5, 18
 # Render gradients, kernels vs plain, normalised by the largest magnitude:
 # the render-vs-oracle gradient tolerance of tests/test_raster.py.
 GRAD_ATOL = 5e-4
@@ -131,14 +141,39 @@ def bench_scene(n, seed, lo, hi, s_lo, s_hi):
     return [np.asarray(a, np.float32) for a in (means, scales, quats, opac, sh)]
 
 
+def raw_params(arrays):
+    """bench_scene's arrays as the raw (pre-activation) parameters of
+    scene/gaussians.py, numpy arrays by group."""
+    means, scales, quats, opac, sh = arrays
+    return {
+        "means3d": means,
+        "sh_dc": sh[:, :1],
+        "sh_rest": sh[:, 1:],
+        "scales_log": np.log(scales),
+        "quats_raw": quats,
+        "opacities_raw": np.log(opac / (1.0 - opac)),
+        "mask": np.ones(len(means), np.float32),
+    }
+
+
+def serving_views(model):
+    """The serving orbit's cameras and a 1920x1080 config whose
+    max_instances fits their largest instance count."""
+    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in ORBITS]
+    probe = RasterConfig(width=MAIN_W, height=MAIN_H, max_instances=1 << 24)
+    counts = [count_instances(*model, c, probe) for c in cams]
+    cap = autotune_max_instances(max(counts), 128, safety=1.25)
+    log(f"instances per view {counts}, max_instances {cap}")
+    return cams, RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128, max_instances=cap)
+
+
 def on_card(arrays):
     return tuple(torch.from_numpy(a).to(DEV) for a in arrays)
 
 
 def blend_inputs(gs, cam, cfg):
     proj = preprocess(*gs, cam, cfg)
-    binned = bin_gaussians(proj.rect, proj.depths, proj.valid, cfg)
-    return pack_fields(proj), binned
+    return pack_fields(proj), bin_gaussians(proj.rect, proj.depths, proj.valid, cfg)
 
 
 def compare(label, fields, binned, cfg):
@@ -161,29 +196,35 @@ def compare(label, fields, binned, cfg):
     return max_err
 
 
-def compare_backward(label, fields, binned, cfg, plain_chunk=None):
-    """B2 vs its plain version on the same inputs (B1's output and a seeded
-    cotangent with colour and T parts); returns max abs error."""
+def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
+    """B2 vs its plain version on the same inputs (B1's output and the
+    cotangent g, by default a seeded one with colour and T parts); two
+    launches must give bitwise-equal rows. Returns max abs error."""
     out = blend_cuda.blend_forward(fields, binned, cfg)
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    g = torch.randn(out.shape, generator=gen, device=DEV)
+    if g is None:
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        g = torch.randn(out.shape, generator=gen, device=DEV)
     before = blend_cuda.blend_backward.launches
     rows = blend_cuda.blend_backward(fields, binned, cfg, out, g)
+    again = blend_cuda.blend_backward(fields, binned, cfg, out, g)
     torch.cuda.synchronize()
-    if blend_cuda.blend_backward.launches != before + 1:
+    if blend_cuda.blend_backward.launches != before + 2:
         raise AssertionError(f"{label}: the backward kernel's count did not rise")
+    if not torch.equal(rows, again):
+        raise AssertionError(f"{label}: two backward launches differ")
+    del again
     plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk or cfg.chunk)
     ref = blend_backward_torch(fields, binned, plain_cfg, out, g)
     if not torch.isfinite(rows).all():
         raise AssertionError(f"{label}: backward kernel output not finite")
     scale = ref.abs().amax(dim=0).clamp_min(1e-30)  # per gradient column
     err = (rows - ref).abs()
-    off = (err / scale > ATOL + RTOL * ref.abs() / scale).float().mean().item()
+    off = int((err / scale > ATOL + RTOL * ref.abs() / scale).sum())
     max_err = err.max().item()
     log(f"{label} backward: rows {rows.shape[0]} max_abs_err {max_err:.3e} "
         f"max_normalised_err {(err / scale).max().item():.3e} "
-        f"share_off_tol {off:.2e}")
-    if off > FLIP_SHARE:
+        f"off_tol {off} of {err.numel()}; two launches bitwise equal")
+    if off > max(BWD_OFF_SHARE * err.numel(), BWD_OFF_MIN):
         raise AssertionError(f"{label}: backward kernel disagrees with the plain version")
     return max_err
 
@@ -405,9 +446,58 @@ def phase_training(model, rcfg):
         raise AssertionError("a logged loss is not finite")
     if any(h["overflow"] for h in history):
         raise AssertionError("instance overflow during training")
+    # a log step's flag is its own step's: re-bin every view with the final
+    # state, so that no view's overflow goes unseen
+    with torch.inference_mode():
+        final = gauss_lib.activate(state.params)
+        for c in cams:
+            proj = preprocess(*final, c, rcfg)
+            if bool(bin_gaussians(proj.rect, proj.depths, proj.valid, rcfg).overflow):
+                raise AssertionError("a training view overflows with the final state")
+        del final, proj
     if not after["psnr"] > before["psnr"]:
         raise AssertionError("training did not raise PSNR")
     return state, cams, gt_imgs, tcfg, launches
+
+
+def work(fields, binned, cfg):
+    """This run's data: instances, pre-stop pairs (every pair up to each
+    pixel's stop) and live pairs (at or above the 1/255 cutoff, up to and
+    including the stop), and the bytes each kernel must move."""
+    n_inst = int(binned.inst_gauss.numel())
+    image_bytes = 4 * cfg.height * cfg.width * 4
+    in_bytes = n_inst * 9 * 4 + n_inst * 4 + binned.tile_ranges.numel() * 4
+    return {
+        "instances": n_inst,
+        "pairs": int(blend_work_torch(fields, binned, cfg)),
+        "live": int(blend_work_torch(fields, binned, cfg, live=True)),
+        # B1 reads each instance's fields once per tile and writes [4, H, W];
+        # B2 also reads out and g_out and writes the [M, 9] rows
+        "bytes_fwd": in_bytes + image_bytes,
+        "bytes_bwd": in_bytes + 2 * image_bytes + n_inst * 9 * 4,
+    }
+
+
+def bounds(w):
+    """{"live": ..., "prestop": ...} bounds of B1 and B2 for the work w, each
+    (ms, "bytes" or "operations", bytes ms, operations ms)."""
+
+    def one(bytes_moved, pairs, flops, sfu):
+        b = bytes_moved / HBM_BYTES_S * 1e3
+        o = max(pairs * flops / FP32_FLOP_S, pairs * sfu / SFU_OPS_S) * 1e3
+        return max(b, o), ("bytes" if b > o else "operations"), b, o
+
+    return tuple(
+        {k: one(w[by], w[n], flops, sfu) for k, n in (("live", "live"), ("prestop", "pairs"))}
+        for by, flops, sfu in (("bytes_fwd", FLOPS_PER_PAIR, SFU_PER_PAIR),
+                               ("bytes_bwd", FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD))
+    )
+
+
+def fmt_bound(b):
+    return " / ".join(
+        f"{k} {v[0]:.4f} ms ({v[1]}; bytes {v[2]:.4f}, operations {v[3]:.4f})"
+        for k, v in b.items())
 
 
 def main():
@@ -460,19 +550,12 @@ def main():
         fields, binned = blend_inputs(gs, cam, cfg_odd)
         check("1000x600 @ 20k", fields, binned, cfg_odd)
         del gs, fields, binned
+        fields, binned, cfg_adv = adversarial_blend_inputs(seed=0, device=DEV)
+        check("adversarial 100x70, needles, a run of 12k", fields, binned, cfg_adv)
+        del fields, binned
 
     # 4. serving path: gs.ply -> load_ply -> viewer at 1920x1080
-    arrays = bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015)
-    means, scales, quats, opac, sh = arrays
-    raw = {
-        "means3d": means,
-        "sh_dc": sh[:, :1],
-        "sh_rest": sh[:, 1:],
-        "scales_log": np.log(scales),
-        "quats_raw": quats,
-        "opacities_raw": np.log(opac / (1.0 - opac)),
-        "mask": np.ones(len(means), np.float32),
-    }
+    raw = raw_params(bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gs.ply")
         t0 = time.time()
@@ -482,12 +565,7 @@ def main():
             f"loaded in {time.time() - t0:.1f} s")
     with torch.inference_mode():
         model = gauss_lib.activate(params)
-        cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in ORBITS]
-        probe = RasterConfig(width=MAIN_W, height=MAIN_H, max_instances=1 << 24)
-        counts = [count_instances(*model, c, probe) for c in cams]
-        cap = autotune_max_instances(max(counts), 128, safety=1.25)
-        cfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128, max_instances=cap)
-        log(f"instances per view {counts}, max_instances {cap}")
+        cams, cfg = serving_views(model)
         fields, binned = blend_inputs(model, cams[0], cfg)
         # the plain backward's [tiles, pixels, chunk] temporaries at 1080p
         # take ~1 GB each at chunk 128: walk it 64 at a time
@@ -548,12 +626,14 @@ def main():
         bin_ms = cuda_ms(
             lambda: bin_gaussians(proj.rect, proj.depths, proj.valid, cfg), 10
         )
+        # each kernel's wrapper sorts the tiles before it launches
+        order_ms = cuda_ms(lambda: blend_cuda.heaviest_first(binned.tile_ranges), 10)
         t0 = time.perf_counter()
         viewer.render_png(model, cams[0], cfg)
         png_ms = (time.perf_counter() - t0) * 1e3
         log(f"breakdown: preprocess {pre_ms:.3f} ms, binning {bin_ms:.3f} ms, "
-            f"render {render_ms:.3f} ms (device); render + PNG {png_ms:.1f} ms "
-            f"(host)")
+            f"tile order (inside each of B1 and B2) {order_ms:.4f} ms, render "
+            f"{render_ms:.3f} ms (device); render + PNG {png_ms:.1f} ms (host)")
         out = blend_cuda.blend_forward(fields, binned, cfg)
         g = torch.randn(out.shape, generator=torch.Generator(device=DEV).manual_seed(0),
                         device=DEV)
@@ -561,28 +641,15 @@ def main():
         plain_cfg = dataclasses.replace(cfg, chunk=64)
         plain_ms_b = cuda_ms(
             lambda: blend_backward_torch(fields, binned, plain_cfg, out, g), 3)
-        pairs = int(blend_work_torch(fields, binned, cfg))
-        n_inst = int(binned.inst_gauss.numel())
-        image_bytes = 4 * MAIN_H * MAIN_W * 4
-        in_bytes = (n_inst * 9 * 4 + n_inst * 4 + binned.tile_ranges.numel() * 4)
+        serve = work(fields, binned, cfg)
         del fields, binned, out, g, proj
         torch.cuda.empty_cache()
-
-    def bound(bytes_moved, flops, sfu):
-        b = bytes_moved / HBM_BYTES_S * 1e3
-        o = max(pairs * flops / FP32_FLOP_S, pairs * sfu / SFU_OPS_S) * 1e3
-        return max(b, o), ("bytes" if b > o else "operations"), b, o
-
-    # B1 reads each instance's fields once per tile and writes [4, H, W];
-    # B2 also reads out and g_out and writes the [M, 9] rows
-    bound_f, by_f, bb_f, bo_f = bound(in_bytes + image_bytes, FLOPS_PER_PAIR, SFU_PER_PAIR)
-    bound_b, by_b, bb_b, bo_b = bound(
-        in_bytes + 2 * image_bytes + n_inst * 9 * 4, FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD)
-    log(f"{MAIN_W}x{MAIN_H} @ 1M: {n_inst} instances, {pairs} (instance, pixel) "
-        f"pairs evaluated; B1 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_f:.4f} ms (bytes {bb_f:.4f}, operations {bo_f:.4f}); B2 "
-        f"{ms_b:.4f} ms, plain {plain_ms_b:.3f} ms, bound {bound_b:.4f} ms "
-        f"(bytes {bb_b:.4f}, operations {bo_b:.4f}); whole render {render_ms:.3f} ms")
+    b_f, b_b = bounds(serve)
+    log(f"{MAIN_W}x{MAIN_H} @ 1M: {serve['instances']} instances, {serve['pairs']} "
+        f"pre-stop (instance, pixel) pairs, {serve['live']} live; B1 {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {fmt_bound(b_f)}; B2 {ms_b:.4f} ms, "
+        f"plain {plain_ms_b:.3f} ms, bound {fmt_bound(b_b)}; whole render "
+        f"{render_ms:.3f} ms")
 
     opt = opt_lib.make_gs_optimizer(TRAIN_EXTENT)
     gt0 = torch.from_numpy(gt_imgs[0]).to(DEV)
@@ -596,12 +663,25 @@ def main():
         f"parts (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.3f}")
     with torch.inference_mode():
+        # the step's own blend inputs: the low-opacity, deep-run case
+        label = "the train step's blend inputs"
+        max_err["blend_forward"] = max(
+            max_err["blend_forward"], compare(label, f_s, b_s, rcfg))
+        max_err["blend_backward"] = max(
+            max_err["blend_backward"],
+            compare_backward(label, f_s, b_s, rcfg, plain_chunk=64, g=g_s))
         # the same launches back to back, without the step's host gaps
         ms_fs = cuda_ms(lambda: blend_cuda.blend_forward(f_s, b_s, rcfg), 10)
         ms_bs = cuda_ms(lambda: blend_cuda.blend_backward(f_s, b_s, rcfg, o_s, g_s), 10)
-        pairs_s = int(blend_work_torch(f_s, b_s, rcfg))
-    log(f"the step's blend inputs alone: B1 {ms_fs:.4f} ms, B2 {ms_bs:.4f} ms, "
-        f"{pairs_s} pairs")
+        plain_ms_fs = cuda_ms(lambda: blend_forward_torch(f_s, b_s, rcfg), 1)
+        plain_ms_bs = cuda_ms(lambda: blend_backward_torch(
+            f_s, b_s, dataclasses.replace(rcfg, chunk=64), o_s, g_s), 1)
+        step = work(f_s, b_s, rcfg)
+    s_f, s_b = bounds(step)
+    log(f"the step's blend inputs alone: {step['instances']} instances, "
+        f"{step['pairs']} pre-stop pairs, {step['live']} live; B1 {ms_fs:.4f} ms, "
+        f"plain {plain_ms_fs:.3f} ms, bound {fmt_bound(s_f)}; B2 {ms_bs:.4f} ms, "
+        f"plain {plain_ms_bs:.3f} ms, bound {fmt_bound(s_b)}")
     del f_s, b_s, o_s, g_s
     t = Timer()
     t.mark("start")
@@ -610,33 +690,38 @@ def main():
     t.mark("densify")
     log(f"densify step: {t.parts()['densify']:.3f} ms")
 
+    def record(name, line, b, sb, times, plain):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"frosting_tpu_torch/csrc/{name}.cu",
+            "replaces": f"frosting_tpu/raster/blend_pallas.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            # the serving view; *_step: the train step's own blend inputs
+            "ms": times[0],
+            "plain_ms": plain[0],
+            # the least time for the live pairs (bound_live_ms); the bound
+            # over every pre-stop pair beside it
+            "bound_ms": b["live"][0],
+            "bound_by": b["live"][1],
+            # no PyTorch call computes either blend or any part of it
+            "library_ms": None,
+            "bound_live_ms": b["live"][0],
+            "bound_prestop_ms": b["prestop"][0],
+            "pairs": serve["pairs"],
+            "live_pairs": serve["live"],
+            "ms_step": times[1],
+            "plain_ms_step": plain[1],
+            "bound_live_ms_step": sb["live"][0],
+            "bound_prestop_ms_step": sb["prestop"][0],
+            "pairs_step": step["pairs"],
+            "live_pairs_step": step["live"],
+        }
+
     records = [
-        {
-            "name": "blend_forward",
-            "route": "cuda",
-            "source": "frosting_tpu_torch/csrc/blend_forward.cu",
-            "replaces": "frosting_tpu/raster/blend_pallas.py:207",
-            "launches": launches["blend_forward"],
-            "max_abs_err": max_err["blend_forward"],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_f,
-            "bound_by": by_f,
-            "library_ms": None,  # no single PyTorch call computes this blend
-        },
-        {
-            "name": "blend_backward",
-            "route": "cuda",
-            "source": "frosting_tpu_torch/csrc/blend_backward.cu",
-            "replaces": "frosting_tpu/raster/blend_pallas.py:411",
-            "launches": launches["blend_backward"],
-            "max_abs_err": max_err["blend_backward"],
-            "ms": ms_b,
-            "plain_ms": plain_ms_b,
-            "bound_ms": bound_b,
-            "bound_by": by_b,
-            "library_ms": None,  # no PyTorch call computes any part of it
-        },
+        record("blend_forward", 207, b_f, s_f, (ms, ms_fs), (plain_ms, plain_ms_fs)),
+        record("blend_backward", 411, b_b, s_b, (ms_b, ms_bs), (plain_ms_b, plain_ms_bs)),
     ]
     log(card)
     log(json.dumps({"kernels": records}))

@@ -2,10 +2,11 @@
 C interface, at first use, and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, where the
-hash covers the source and the compiler flags, so an edited source is
-rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc``
-per source at once and waits for all of them. Importing this module needs
-neither ``nvcc`` nor a GPU; building does.
+hash covers the source, every header ``csrc/*.cuh`` and the compiler flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them. Importing this module needs neither ``nvcc`` nor a GPU; building
+does.
 """
 
 from __future__ import annotations
@@ -43,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,14 +1,17 @@
 """The blend kernels: the hand-written CUDA kernels ``csrc/blend_forward.cu``
-and ``csrc/blend_backward.cu`` for tensors on the GPU, their plain PyTorch
-versions (blend_torch.py) for tensors on the CPU.
+and ``csrc/blend_backward.cu`` (sharing ``csrc/blend_common.cuh``) for
+tensors on the GPU, their plain PyTorch versions (blend_torch.py) for
+tensors on the CPU.
 
 The kernels replace ``frosting_tpu/raster/blend_pallas.py::
 blend_forward_pallas`` and ``blend_backward_pallas``. Both are bound by FP32
 and SFU (``exp``, reciprocal) throughput over the (instance, tile-pixel)
-pairs, not by bytes: each instance's 36 B is read once per tile and reused
-by all of the tile's pixels (see the sources' headers for the designs).
-They are built with nvcc at the first launch (``frosting_tpu_torch/
-_build.py``).
+pairs they evaluate, not by bytes: each instance's 36 B is read once per
+tile and reused by all of the tile's pixels; each warp skips the instances
+whose footprint box misses its 8x4 pixel patch (see the sources' headers
+for the designs). Blocks take tiles heaviest first (``heaviest_first``).
+The kernels are built with nvcc at the first launch
+(``frosting_tpu_torch/_build.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ from frosting_tpu_torch.raster.config import INSTANCE_WIDTH, RasterConfig
 
 KERNELS = ("blend_forward", "blend_backward")
 MAX_THREADS_PER_BLOCK = 1024
+# A warp covers an 8x4 pixel patch of its tile (csrc/blend_common.cuh).
+PATCH_W, PATCH_H = 8, 4
+# The backward's tile-centred basis (x, y, x^2, y^2, xy) is exact in TF32
+# while |x|, |y| <= 32.
+MAX_BACKWARD_TILE_SIDE = 64
 
 
 def _launcher(name: str, n_pointers: int):
@@ -38,6 +46,15 @@ def _launcher(name: str, n_pointers: int):
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+def heaviest_first(tile_ranges: torch.Tensor) -> torch.Tensor:
+    """[n_tiles] int32 tile ids sorted by run length, longest first
+    (stable), on the device: blocks take tiles in this order, so that the
+    heaviest runs start in the first wave and not the last. One argsort of
+    n_tiles ints per launch; the backward's order is the forward's."""
+    lens = tile_ranges[:, 1] - tile_ranges[:, 0]
+    return torch.argsort(lens, descending=True, stable=True).to(torch.int32)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -67,8 +84,8 @@ def blend_forward(
     _check_inputs(fields, binned, cfg)
     out = torch.empty((4, cfg.height, cfg.width), dtype=torch.float32,
                       device=fields.device)
-    _launch("blend_forward", fields, binned.inst_gauss, binned.tile_ranges, out,
-            cfg=cfg)
+    _launch("blend_forward", fields, binned.inst_gauss, binned.tile_ranges,
+            heaviest_first(binned.tile_ranges), out, cfg=cfg)
     blend_forward.launches += 1
     return out
 
@@ -87,8 +104,11 @@ def blend_backward(
     if fields.device.type == "cpu":
         return blend_backward_torch(fields, binned, cfg, out, g_out)
     _check_inputs(fields, binned, cfg)
-    if cfg.tile_pixels % 32:
-        raise ValueError(f"tile {cfg.tile_w}x{cfg.tile_h} is not whole warps")
+    if max(cfg.tile_w, cfg.tile_h) > MAX_BACKWARD_TILE_SIDE:
+        raise ValueError(
+            f"tile {cfg.tile_w}x{cfg.tile_h}: the backward kernel takes sides "
+            f"up to {MAX_BACKWARD_TILE_SIDE}"
+        )
     image = (4, cfg.height, cfg.width)
     _check("out", out, torch.float32, image, fields.device)
     _check("g_out", g_out, torch.float32, image, fields.device)
@@ -96,7 +116,7 @@ def blend_backward(
     grads = torch.zeros((binned.inst_gauss.shape[0], INSTANCE_WIDTH),
                         dtype=torch.float32, device=fields.device)
     _launch("blend_backward", fields, binned.inst_gauss, binned.tile_ranges,
-            out, g_out, grads, cfg=cfg)
+            heaviest_first(binned.tile_ranges), out, g_out, grads, cfg=cfg)
     blend_backward.launches += 1
     return grads
 
@@ -114,6 +134,11 @@ def _check_inputs(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
         raise ValueError(
             f"tile {cfg.tile_w}x{cfg.tile_h} exceeds {MAX_THREADS_PER_BLOCK} "
             "threads per block"
+        )
+    if cfg.tile_w % PATCH_W or cfg.tile_h % PATCH_H:
+        raise ValueError(
+            f"tile {cfg.tile_w}x{cfg.tile_h} is not whole {PATCH_W}x{PATCH_H} "
+            "warp patches"
         )
 
 

@@ -19,6 +19,12 @@ after the last contributing Gaussian. The backward re-walks the runs in
 forward order with JAX's suffix trick (see ``blend_backward_torch``). These
 are the CPU path and the on-card yardsticks of the CUDA kernels
 (blend_cuda.py).
+
+Beside them live the plain forms of the kernels' two design arguments:
+``instance_boxes_torch``, the pixel box outside which a pair is below the
+cutoff (the kernels skip such pairs unevaluated), and ``moment_rows_tf32``,
+the backward's per-instance sums as split-TF32 moment products
+(csrc/blend_common.cuh).
 """
 
 from __future__ import annotations
@@ -35,6 +41,43 @@ from frosting_tpu_torch.raster.config import (
     TRANSMITTANCE_EPS,
     RasterConfig,
 )
+
+
+# The footprint box's padding beyond the alpha = 1/255 ellipse, in pixels:
+# BOX_PAD plus BOX_PAD_REL of the ellipse's half-extent
+# (csrc/blend_common.cuh kBoxPad, kBoxPadRel).
+BOX_PAD = 1.0
+BOX_PAD_REL = 1.0 / 64.0
+# A conic whose det = a c - b^2 is at most BOX_MIN_DET_REL * a c gets the
+# whole plane: above it, det's float32 rounding (about 2^-23 a c) moves r by
+# under 1e-3 of itself, well inside BOX_PAD_REL (kBoxMinDetRel).
+BOX_MIN_DET_REL = 1e-4
+
+
+def instance_boxes_torch(fields: torch.Tensor) -> torch.Tensor:
+    """[N, 9] fields -> [N, 4] (x0, y0, x1, y1): the pixel box outside which
+    op * exp(power) < 1/255, so that a pair there never touches T or any
+    sum. With L = ln(255 op), det = a c - b^2, the ellipse power >= -L
+    reaches rx = sqrt(2 L c / det) and ry = sqrt(2 L a / det) from the mean;
+    the box adds BOX_PAD + BOX_PAD_REL * r on each side against rounding.
+    L <= 0, a conic that is not positive definite or too ill-conditioned
+    for det's rounding (det <= BOX_MIN_DET_REL * a c: long, thin
+    footprints) or a box that is not finite gives the whole plane (-inf,
+    -inf, inf, inf)."""
+    mx, my, ca, cb, cc, op = fields[:, :6].unbind(1)
+    big = torch.log(255.0 * op)
+    ac = ca * cc
+    det = ac - cb * cb
+    rx = torch.sqrt(2.0 * big * cc / det)
+    ry = torch.sqrt(2.0 * big * ca / det)
+    px = BOX_PAD + BOX_PAD_REL * rx
+    py = BOX_PAD + BOX_PAD_REL * ry
+    box = torch.stack([mx - rx - px, my - ry - py, mx + rx + px, my + ry + py], 1)
+    ok = ((big > 0.0) & (ca > 0.0) & (det > 0.0) & (det > BOX_MIN_DET_REL * ac)
+          & torch.isfinite(box).all(1))
+    whole = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=fields.dtype,
+                         device=fields.device) * float("inf")
+    return torch.where(ok[:, None], box, whole)
 
 
 class _Chunk(NamedTuple):
@@ -176,43 +219,105 @@ def blend_backward_torch(
         )
         live = (c.power <= 0.0) & (c.raw >= ALPHA_CUTOFF) & (c.raw < ALPHA_CLAMP)
         dp = torch.where(live, dalpha * c.alpha, 0.0)
-        s0 = dp.sum(dim=1)  # [T, K]
-        sx = (dp * c.dx).sum(dim=1)
-        sy = (dp * c.dy).sum(dim=1)
-        sxx = (dp * c.dx * c.dx).sum(dim=1)
-        syy = (dp * c.dy * c.dy).sum(dim=1)
-        sxy = (dp * c.dx * c.dy).sum(dim=1)
-        ca, cb, cc, op = c.f[..., 2], c.f[..., 3], c.f[..., 4], c.f[..., 5]
-        dcol = torch.bmm(w.transpose(1, 2), g_color)  # [T, K, 3]
-        rows = torch.cat([
-            torch.stack([
-                -(ca * sx + cb * sy),
-                -(cc * sy + cb * sx),
-                -0.5 * sxx,
-                -sxy,
-                -0.5 * syy,
-                s0 / torch.where(op == 0.0, 1.0, op),
-            ], dim=2),
-            dcol,
-        ], dim=2)  # [T, K, 9]
+        rows = _rows(c.f, _direct_sums(dp, c.dx, c.dy),
+                     torch.bmm(w.transpose(1, 2), g_color))  # [T, K, 9]
         rows_out[c.idx[c.in_run]] = rows[c.in_run]
         gc_pre = gc_pre + cum[..., -1:]
     return rows_out
 
 
+def _direct_sums(dp, dx, dy):
+    """The six spatial sums over the pixels (dim -2) of dp against dx, dy
+    and their products: (s0, sx, sy, sxx, syy, sxy), each [..., K]."""
+    return tuple(t.sum(dim=-2) for t in (
+        dp, dp * dx, dp * dy, dp * dx * dx, dp * dy * dy, dp * dx * dy))
+
+
+def _rows(f, sums, dcol):
+    """Gradient rows [..., K, 9] from an instance's fields f [..., K, 9],
+    its six spatial sums and its colour sums dcol [..., K, 3]."""
+    s0, sx, sy, sxx, syy, sxy = sums
+    ca, cb, cc, op = f[..., 2], f[..., 3], f[..., 4], f[..., 5]
+    return torch.cat([
+        torch.stack([
+            -(ca * sx + cb * sy),
+            -(cc * sy + cb * sx),
+            -0.5 * sxx,
+            -sxy,
+            -0.5 * syy,
+            s0 / torch.where(op == 0.0, 1.0, op),
+        ], dim=-1),
+        dcol,
+    ], dim=-1)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), as the backward
+    kernel rounds its tensor-core operands: add half of the dropped range,
+    then clear the low 13 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def moment_rows_tf32(
+    f: torch.Tensor,  # [K, 9] the instances' fields
+    dp: torch.Tensor,  # [P, K] dpower of each (pixel, instance) pair
+    w: torch.Tensor,  # [P, K] alpha * T
+    g_color: torch.Tensor,  # [P, 3] the pixels' colour cotangent
+    xo: torch.Tensor,  # [P] pixel x - cx, integers in [-tile_w/2, tile_w/2)
+    yo: torch.Tensor,  # [P] pixel y - cy
+    cx: float,
+    cy: float,
+) -> torch.Tensor:
+    """The backward kernel's per-instance rows [K, 9] as it computes them:
+    the moments of dpower against the tile-centred basis (1, x, y, x^2,
+    y^2, xy) and the colour sums g^T w, as TF32 products with FP32 sums
+    (chunk_math.py's moment product). The basis values are integers of at
+    most 9 significant bits, exact in TF32, so dpower is split into two
+    TF32 parts (two passes); g^T w splits both sides (hi hi + hi lo + lo
+    hi, three passes). The moments become the sums against dx = mx - x by
+    expanding the squares around the tile-centred mean (mx - cx)."""
+    basis = torch.stack([torch.ones_like(xo), xo, yo, xo * xo, yo * yo, xo * yo])
+    dp_hi, dp_lo = _split_tf32(dp)
+    mom = basis @ dp_hi + basis @ dp_lo  # [6, K]
+    g_hi, g_lo = _split_tf32(g_color)
+    w_hi, w_lo = _split_tf32(w)
+    dcol = (w_hi.T @ g_hi + w_lo.T @ g_hi) + w_hi.T @ g_lo  # [K, 3]
+    m0, m_x, m_y, m_xx, m_yy, m_xy = mom
+    mxc = f[:, 0] - cx
+    myc = f[:, 1] - cy
+    sums = (
+        m0,
+        mxc * m0 - m_x,
+        myc * m0 - m_y,
+        mxc * mxc * m0 - 2.0 * mxc * m_x + m_xx,
+        myc * myc * m0 - 2.0 * myc * m_y + m_yy,
+        mxc * myc * m0 - mxc * m_y - myc * m_x + m_xy,
+    )
+    return _rows(f, sums, dcol)
+
+
 def blend_work_torch(
-    fields: torch.Tensor, binned: Binned, cfg: RasterConfig
+    fields: torch.Tensor, binned: Binned, cfg: RasterConfig, live: bool = False
 ) -> torch.Tensor:
     """Number of (instance, pixel) evaluations a front-to-back walk that
     stops each pixel at its stop Gaussian needs, summed over the pixels
     inside the image: the work the blend's data requires (for a roofline
-    bound), with no early stop of whole tiles assumed."""
+    bound), with no early stop of whole tiles assumed. With ``live``, only
+    the pairs at or above the 1/255 cutoff count (the contributing pairs
+    and each pixel's stop pair): the least work of a walk that skips the
+    rest unevaluated, as the kernels' footprint boxes do."""
     n_tiles, p = cfg.n_tiles, cfg.tile_pixels
     work = torch.zeros((n_tiles, p), dtype=torch.int64, device=fields.device)
     stopped = torch.zeros((n_tiles, p), dtype=torch.bool, device=fields.device)
     for c in _walk(fields, binned, cfg):
         # m is true on a prefix of each pixel's run and false from its stop
-        work += c.m.sum(dim=2)
+        work += (c.m & (c.alpha > 0.0) if live else c.m).sum(dim=2)
         stopped |= (~c.m & c.in_run[:, None, :]).any(dim=2)
     work += stopped.long()
     x, y = _tile_pixels(cfg, fields.device)

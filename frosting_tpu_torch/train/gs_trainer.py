@@ -211,9 +211,10 @@ def train(
     device="cuda",
 ) -> tuple[TrainState, List[Dict]]:
     """The training loop. Returns the final state and the metrics of the
-    log steps; a log step's ``overflow`` says whether any step since the
-    last log step overflowed ``rcfg.max_instances``. With ``log_fn``, each
-    densify step's DensifyInfo is logged too (one read-back each)."""
+    log steps; a log step's ``overflow`` says whether that step's render
+    overflowed ``rcfg.max_instances``, as in the JAX trainer. With
+    ``log_fn``, each densify step's DensifyInfo is logged too (one read-back
+    each)."""
     state, opt = init_state(points, colors, spatial_extent, cfg, device=device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
@@ -225,7 +226,6 @@ def train(
     snapshot = None  # in-memory rollback point
     if cfg.checkpoint_dir:
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    overflow = torch.zeros((), dtype=torch.bool, device=device)
 
     order = rng.permutation(len(cameras))
     pos = 0
@@ -241,7 +241,6 @@ def train(
         state, metrics = train_step(
             state, cameras[ci], gt_dev[ci], opt, rcfg, cfg, active_deg
         )
-        overflow = overflow | metrics["overflow"]
 
         if cfg.checkpoint_every > 0 and it % cfg.checkpoint_every == 0:
             snapshot = clone_state(state)
@@ -278,10 +277,9 @@ def train(
                 "loss": loss_val,
                 "psnr": float(metrics["psnr"]),
                 "n_active": int(state.params.num_active()),
-                "overflow": bool(overflow),
+                "overflow": bool(metrics["overflow"]),
                 "iters_per_s": cfg.log_every / max(time.time() - t0, 1e-9),
             }
-            overflow = torch.zeros_like(overflow)
             t0 = time.time()
             history.append(m)
             mlog.log(it, **{k: v for k, v in m.items() if k != "iter"})

@@ -77,6 +77,28 @@ def test_train_steps_match_jax():
         assert {g: int(c) for g, c in state.opt_state.count.items()} == count
 
 
+def test_logged_overflow_is_the_log_steps_own_flag_as_in_jax():
+    """A capacity between the views' instance counts (637-717 at the init):
+    the 2nd and 3rd steps' views overflow, the 4th's does not. Each log
+    step's overflow is that step's own flag in both packages."""
+    jcfg, jcams, tcams, gt_imgs, pts, cols = _setup()
+    raster = dict(RASTER, max_instances=704)
+    cfg = dict(capacity=512, iterations=6, log_every=2, densify_from=100)
+    _, jhist = jax_trainer.train(
+        jcams, gt_imgs, pts, cols, EXTENT,
+        dataclasses.replace(jcfg, max_instances=704),
+        jax_trainer.GSTrainConfig(**cfg), log_fn=None,
+    )
+    _, hist = gs_trainer.train(
+        tcams, gt_imgs, pts, cols, EXTENT, RasterConfig(**raster),
+        gs_trainer.GSTrainConfig(**cfg), log_fn=None, device="cpu",
+    )
+    want = [h["overflow"] for h in jhist]
+    assert True in want and False in want, want
+    assert [h["iter"] for h in hist] == [h["iter"] for h in jhist]
+    assert [h["overflow"] for h in hist] == want
+
+
 def test_nan_ground_truth_leaves_the_state_untouched():
     rcfg = RasterConfig(**RASTER)
     scene = synthetic.gaussian_blob_scene(n=400, seed=0, device="cpu")

@@ -1,6 +1,6 @@
 """The port imports nothing of JAX or of the JAX package.
 
-Scans every module of frosting_tpu_torch/ and chip_smoke.py for imports of
+Scans every module of frosting_tpu_torch/, chip_smoke.py and blend_ab.py for imports of
 jax, jaxlib or frosting_tpu (the exact top-level name: frosting_tpu is a
 prefix of frosting_tpu_torch), and imports the package in a fresh process
 where importing jax fails.
@@ -15,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "frosting_tpu"}
-SOURCES = sorted((ROOT / "frosting_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "frosting_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "blend_ab.py"]
 
 
 def _imported_roots(path):
