@@ -6,7 +6,8 @@ Run from the root of the repository on a machine with a CUDA card:
 
 Phases (any failure raises and exits nonzero):
   1. device: require CUDA, print `nvidia-smi` name and power limit;
-  2. build: compile both blend kernels from csrc/ with nvcc, in parallel;
+  2. build: compile the blend kernels (B1, B2) and the probes (P1-P4) from
+     csrc/ with nvcc, one process per source, all at once;
   3. kernels vs plain: hold the CUDA forward blend (B1) and backward blend
      (B2) against their plain PyTorch versions on the same inputs (bench.py's
      512x512 @ 100k scene, an odd 1000x600 @ 20k size with partial edge
@@ -14,8 +15,9 @@ Phases (any failure raises and exits nonzero):
      conics, needles whose float32 det cancels, opacities at the cutoff and
      a run of 12k instances), the port's render on a small scene against
      the per-pixel oracle, and the render's gradients through B1 + B2 +
-     index_add_ against the same loss's gradients through the plain
-     versions. Every B2 check launches it twice and requires bitwise-equal
+     the fixed-order reduction against the same loss's gradients through
+     the plain versions; two calls of those gradients must be bitwise
+     equal. Every B2 check launches it twice and requires bitwise-equal
      rows;
   4. serving path at full width: scripts/bench_1080p.py's scene (1M
      Gaussians, SH degree 3, seed 0) written as gs.ply, loaded back onto the
@@ -30,10 +32,21 @@ Phases (any failure raises and exits nonzero):
   6. timing: B1, B2 and their plain versions at 1080p @ 1M with CUDA events,
      their bounds from this run's data, a train step broken into its parts,
      B1 and B2 held against their plain versions and timed on the step's
-     own blend inputs, and one densify step.
-Both main paths (4 and 5) reset the kernels' launch counts just before and
-read them just after. The line before the last is the JSON kernels record;
-the last line is {"ok": true, "device": {...}}.
+     own blend inputs, the per-Gaussian reduction against index_add_ (time,
+     and how many values two calls of each disagree in), render gradients
+     of the trained state on the step's view twice (bitwise equal), and one
+     densify step;
+  7. bench path: the probes P1-P4 against their plain versions (the TPU
+     scripts' shapes, and for the scans also an input whose products do
+     not underflow), then the port's measurement entry points at full size,
+     in process: perf_vpu_dtype and perf_scan_variants (graph-replay times
+     and rates, the empty-launch floor, P4's variants cross-checked),
+     bench's 512x512 @ 100k and bench_1080p's 1920x1080 @ 1M (their JSON
+     lines); then the probes' plain and library times and bounds, and the
+     device's busy share over the bench loops (torch.profiler).
+The three main paths (4, 5 and 7) reset the kernels' launch counts just
+before and read them just after. The line before the last is the JSON
+kernels record; the last line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -41,7 +54,6 @@ import json
 import os
 import statistics
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -52,6 +64,21 @@ import numpy as np
 import torch
 
 from frosting_tpu_torch import _build
+from frosting_tpu_torch.bench import __main__ as bench_main
+from frosting_tpu_torch.bench import bench_1080p, perf_scan_variants, perf_vpu_dtype
+from frosting_tpu_torch.bench import common as bench_common
+from frosting_tpu_torch.bench.common import (
+    BF16X2_FLOP_S,
+    FP32_FLOP_S,
+    HBM_BYTES_S,
+    SFU_OPS_S,
+    autotuned_config,
+    bench_scene,
+    cuda_ms,
+    graph_ms,
+    smi,
+    timed,
+)
 from frosting_tpu_torch.cameras import look_at_camera
 from frosting_tpu_torch.raster import RasterConfig, render
 from frosting_tpu_torch.raster import blend_cuda
@@ -67,6 +94,7 @@ from frosting_tpu_torch.raster.render import (
     BlendFunction,
     autotune_max_instances,
     count_instances,
+    sum_rows_by_gaussian,
 )
 from frosting_tpu_torch.ops.ssim import l1_loss, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
@@ -76,13 +104,7 @@ from frosting_tpu_torch.train import gs_trainer
 from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import viewer
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): 3.35 TB/s
-# HBM3 and 67 TFLOP/s FP32 outside the tensor cores, i.e. 132 SMs x 128 FP32
-# lanes x 2 flops x 1.98 GHz. The SFU issues 16 transcendentals per SM per
-# clock: 132 x 16 x 1.98e9 = 4.18e12 exp/s.
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-SFU_OPS_S = 132 * 16 * (FP32_FLOP_S / (132 * 128 * 2))
+# The card's peak rates are in frosting_tpu_torch/bench/common.py.
 # Per evaluated (instance, pixel) pair the forward blend needs at least dx,
 # dy, the quadratic form (9 flops) and op * exp: 12 FP32 flops and one exp.
 # The backward adds about 30 flops (T, u, dalpha, the nine terms) and one
@@ -103,6 +125,7 @@ BWD_OFF_SHARE, BWD_OFF_MIN = 1e-5, 18
 # Render gradients, kernels vs plain, normalised by the largest magnitude:
 # the render-vs-oracle gradient tolerance of tests/test_raster.py.
 GRAD_ATOL = 5e-4
+GRAD_NAMES = ("means3d", "scales", "quats", "opacities", "sh")
 MAIN_W, MAIN_H, MAIN_N = 1920, 1080, 1_000_000
 ORBITS = ((0.0, 0.3), (2.1, 0.2), (4.2, 0.45))  # (azimuth, elevation)
 ORBIT_R = 3.5
@@ -119,26 +142,6 @@ DEV = "cuda"
 
 def log(*a):
     print(*a, flush=True)
-
-
-def smi():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-
-
-def bench_scene(n, seed, lo, hi, s_lo, s_hi):
-    """bench.py / scripts/bench_1080p.py's scene as float32 numpy arrays."""
-    rng = np.random.default_rng(seed)
-    means = rng.uniform(lo, hi, (n, 3))
-    scales = np.exp(rng.uniform(np.log(s_lo), np.log(s_hi), (n, 3)))
-    quats = rng.normal(size=(n, 4))
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    opac = rng.uniform(0.3, 0.95, n)
-    sh = rng.normal(size=(n, 16, 3)) * 0.2
-    sh[:, 0] = (means + 1.0) * 0.7
-    return [np.asarray(a, np.float32) for a in (means, scales, quats, opac, sh)]
 
 
 def raw_params(arrays):
@@ -229,9 +232,35 @@ def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
     return max_err
 
 
+def render_grads(gs, cam, cfg, loss_of, bg=None):
+    """Gradients of loss_of(image, t_final) of the port's render in its
+    five inputs (B1 + B2 + the fixed-order reduction, then autograd)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in gs]
+    out = render(*leaves, cam, cfg, bg=bg)
+    return torch.autograd.grad(loss_of(out.image, out.t_final), leaves)
+
+
+def reproducible_grads(label, gs, cam, cfg, loss_of, bg=None):
+    """render_grads twice: every gradient must be bitwise equal over the two
+    calls (tests/test_determinism.py's property of the JAX package).
+    Returns the first call's gradients."""
+    first = render_grads(gs, cam, cfg, loss_of, bg)
+    second = render_grads(gs, cam, cfg, loss_of, bg)
+    for name, a, b in zip(GRAD_NAMES, first, second):
+        if not torch.equal(a, b):
+            n_diff = int((a != b).sum())
+            raise AssertionError(
+                f"{label}: two calls give render gradients of {name} that differ "
+                f"in {n_diff} of {a.numel()} values")
+    log(f"{label}: render gradients of {', '.join(GRAD_NAMES)} bitwise equal "
+        "over two calls")
+    return first
+
+
 def phase_render_gradients(gs, cam, cfg):
-    """The render's gradients on the card (B1 + B2 + index_add_) against the
-    same loss's gradients through the plain blend versions."""
+    """The render's gradients on the card (B1 + B2 + the fixed-order
+    reduction), bitwise equal over two calls, against the same loss's
+    gradients through the plain blend versions."""
     gen = torch.Generator(device=DEV).manual_seed(1)
     target = torch.rand((3, cfg.height, cfg.width), generator=gen, device=DEV)
     bg = torch.tensor([0.1, 0.2, 0.3], device=DEV)
@@ -239,9 +268,7 @@ def phase_render_gradients(gs, cam, cfg):
     def loss_of(image, t_final):
         return torch.mean((image - target) ** 2) + 0.1 * torch.mean(t_final)
 
-    leaves = [t.clone().requires_grad_(True) for t in gs]
-    out = render(*leaves, cam, cfg, bg=bg)
-    got = torch.autograd.grad(loss_of(out.image, out.t_final), leaves)
+    got = reproducible_grads("512x512 @ 100k", gs, cam, cfg, loss_of, bg)
 
     leaves = [t.clone().requires_grad_(True) for t in gs]
     proj = preprocess(*leaves, cam, cfg)
@@ -251,28 +278,12 @@ def phase_render_gradients(gs, cam, cfg):
     )
     image = out4[:3] + out4[3][None] * bg[:, None, None]
     ref = torch.autograd.grad(loss_of(image, out4[3]), leaves)
-    for name, a, b in zip(("means3d", "scales", "quats", "opacities", "sh"), got, ref):
+    for name, a, b in zip(GRAD_NAMES, got, ref):
         scale = b.abs().max().item()
         err = (a - b).abs().max().item() / max(scale, 1e-30)
         log(f"render gradient {name}: max normalised err {err:.3e} (max |grad| {scale:.3e})")
         if not (scale > 0 and err <= GRAD_ATOL and torch.isfinite(a).all()):
             raise AssertionError(f"render gradient of {name} disagrees with the plain versions")
-
-
-def cuda_ms(fn, reps):
-    """Median device time of fn over reps runs, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def decode_png(data):
@@ -366,8 +377,8 @@ def step_breakdown(state, opt, cam, gt, rcfg, tcfg, reps):
         rows = blend_cuda.blend_backward(fields.detach(), binned, rcfg, out.detach(),
                                          g_out.contiguous())
         t.mark("blend_backward (B2)")
-        dfields = torch.zeros_like(fields).index_add_(0, binned.inst_gauss.long(), rows)
-        t.mark("reduction (index_add_)")
+        dfields = sum_rows_by_gaussian(rows, binned.inst_gauss, fields.shape[0])
+        t.mark("reduction (sorted segment sum)")
         *grads, _ = torch.autograd.grad(
             fields, [leaves[g] for g in opt_lib.GROUPS] + [probe], dfields)
         t.mark("preprocess backward")
@@ -500,6 +511,282 @@ def fmt_bound(b):
         for k, v in b.items())
 
 
+def phase_reduction(fields, binned, cfg, out, g_out):
+    """The per-Gaussian sum of B2's rows on the step's inputs: the port's
+    fixed-order reduction against the index_add_ it replaced (times, how
+    many values two calls of each disagree in, and their difference)."""
+    rows = blend_cuda.blend_backward(fields, binned, cfg, out, g_out)
+    n = fields.shape[0]
+
+    def index_add():
+        return torch.zeros((n, rows.shape[1]), device=DEV).index_add_(
+            0, binned.inst_gauss.long(), rows)
+
+    def fixed():
+        return sum_rows_by_gaussian(rows, binned.inst_gauss, n)
+
+    result = {}
+    for name, fn in (("index_add_", index_add), ("sorted segment sum", fixed)):
+        a, b = fn(), fn()
+        result[name] = {"ms": cuda_ms(fn, 10),
+                        "values_differing_over_two_calls": int((a != b).sum())}
+    a, b = index_add(), fixed()
+    diff = ((a - b).abs().amax(0) / b.abs().amax(0).clamp_min(1e-30)).max().item()
+    log(f"reduction of {rows.shape[0]} rows into {n}: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms, {v['values_differing_over_two_calls']} of "
+        f"{a.numel()} values differ over two calls" for k, v in result.items())
+        + f"; max normalised difference between the two {diff:.3e}")
+    if result["sorted segment sum"]["values_differing_over_two_calls"]:
+        raise AssertionError("the fixed-order reduction is not reproducible")
+    if diff > GRAD_ATOL:
+        raise AssertionError("the fixed-order reduction disagrees with index_add_")
+    return result
+
+
+def scan_reps_library(x):
+    """P3 through PyTorch's own scan and product (timed as library_ms)."""
+    acc = torch.zeros((x.shape[0], 1), device=x.device)
+    y = x
+    for _ in range(perf_scan_variants.REPS):
+        acc = acc + torch.prod(torch.cumprod(y, 1), 1, keepdim=True)
+        y = y * 0.999 + 1e-4
+    return acc
+
+
+def scan_once_library(x):
+    """P4 through torch.cumprod followed by torch.prod."""
+    incl = torch.cumprod(x, 1)
+    return incl, torch.prod(incl, 1, keepdim=True)
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (v in float32)."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def hold_probes():
+    """P1-P4 against their plain versions on the TPU scripts' inputs, and
+    the scans also on an input whose products stay near 0.1. Tolerances:
+    the FMA chain rtol 1e-6 in float32 and 1 ulp in bf16 (0.25 y is exact,
+    so both round each step once); the exp chain rtol 1e-5 in float32 and
+    1e-2 in bf16 (other exp implementations; the chain contracts errors);
+    the scans rtol 2e-5, values under 1e-30 held by atol 1e-30 alone (the
+    order of a product decides its denormals; the kernels multiply in the
+    plain versions' order, so equality is expected). Returns max abs error
+    per probe and dtype / input."""
+    errs = {}
+    pv = perf_vpu_dtype
+    for probe, fn, plain in (("chain_fma", pv.chain_fma, pv.chain_fma_torch),
+                             ("chain_exp", pv.chain_exp, pv.chain_exp_torch)):
+        for nm, dt in pv.DTYPES.items():
+            x = pv.probe_input(dt, DEV)
+            got, ref = fn(x).float(), plain(x).float()
+            err = (got - ref).abs()
+            if probe == "chain_fma":
+                tol = 1e-6 * ref.abs() if nm == "f32" else bf16_ulp(ref)
+            else:
+                tol = (1e-5 if nm == "f32" else 1e-2) * ref.abs()
+            errs[f"{probe}_{nm}"] = err.max().item()
+            log(f"{probe}_{nm} [1024, 512]: max_abs_err {errs[f'{probe}_{nm}']:.3e}, "
+                f"bitwise equal {torch.equal(got, ref)}, values in "
+                f"[{ref.min().item():.6g}, {ref.max().item():.6g}]")
+            if not (torch.isfinite(got).all() and (err <= tol).all()):
+                raise AssertionError(f"{probe}_{nm} disagrees with its plain version")
+
+    ps = perf_scan_variants
+
+    def held(label, got, ref, lib):
+        err = (got - ref).abs()
+        lib_rel = ((lib - ref).abs() / ref.abs().clamp_min(1e-30))[ref.abs() > 1e-30]
+        log(f"  {label}: max_abs_err {err.max().item():.3e}, bitwise equal "
+            f"{torch.equal(got, ref)}; values in [{ref.min().item():.3e}, "
+            f"{ref.max().item():.3e}]; torch.cumprod/prod differ by rel "
+            f"{lib_rel.max().item() if lib_rel.numel() else 0.0:.3e}")
+        if not (torch.isfinite(got).all() and (err <= 1e-30 + 2e-5 * ref.abs()).all()):
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return err.max().item()
+
+    for tag, lo in (("tpu", 0.9), ("nonzero", ps.NONZERO_LO)):
+        # P3 on seed 0 (the TPU script's timing input), P4 on seed 1 (its
+        # cross-check input)
+        x = ps.probe_input(0, lo=lo, device=DEV)
+        ref, lib = ps.scan_reps_torch(x), scan_reps_library(x)
+        log(f"scan_reps, input uniform in [{lo}, 1) seed 0:")
+        reps = {v: ps.scan_reps(x, v) for v in ps.VARIANTS}
+        errs[f"scan_reps_{tag}"] = max(held(v, o, ref, lib) for v, o in reps.items())
+        x = ps.probe_input(1, lo=lo, device=DEV)
+        (ref_i, ref_p), (lib_i, lib_p) = ps.scan_once_torch(x), scan_once_library(x)
+        log(f"scan_once, input uniform in [{lo}, 1) seed 1:")
+        once = {v: ps.scan_once(x, v) for v in ps.VARIANTS}
+        errs[f"scan_once_{tag}"] = max(
+            max(held(v + " incl", i, ref_i, lib_i), held(v + " prod", p, ref_p, lib_p))
+            for v, (i, p) in once.items())
+        for outs in (list(reps.values()), [torch.cat(o, 1) for o in once.values()]):
+            if not all(torch.equal(o, outs[0]) for o in outs):
+                raise AssertionError("the scan variants are not bitwise equal")
+    return errs
+
+
+PROBE_COUNTERS = {
+    "blend_forward": blend_cuda.blend_forward,
+    "blend_backward": blend_cuda.blend_backward,
+    "chain_fma": perf_vpu_dtype.chain_fma,
+    "chain_exp": perf_vpu_dtype.chain_exp,
+    "scan_reps": perf_scan_variants.scan_reps,
+    "scan_once": perf_scan_variants.scan_once,
+}
+
+
+def phase_bench():
+    """The bench main path: the port's four measurement entry points, in
+    process, at their full sizes, with every kernel's launch count reset
+    just before and read just after (a CUDA graph's replays re-run the
+    launches captured from its wrapper calls and are not counted). Returns
+    (launches, the probes' times in ms)."""
+    for fn in PROBE_COUNTERS.values():
+        fn.launches = 0
+    times = perf_vpu_dtype.run(DEV, log=log)
+    times.update(perf_scan_variants.run(DEV, log=log))
+    log(json.dumps(bench_main.run(DEV)))
+    log(json.dumps(bench_1080p.run(DEV, log=log)))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in PROBE_COUNTERS.items()}
+    log(f"bench path launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the bench path did not launch {name}")
+    return launches, times
+
+
+def device_profile(label, fn):
+    """Where one call of fn spends the card's time: torch.profiler's kernel
+    time (the sum of every kernel's device time) over the wall time of an
+    unprofiled call (CUDA events), and the five kernels that take most.
+    Returns the busy share, or None where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    wall_ms = timed(fn, DEV)[0]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        log(f"{label}: the profiler saw no device time; busy share not measured")
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"{label}: wall {wall_ms:.3f} ms (unprofiled), kernels {busy_ms:.3f} ms, "
+        f"device busy {busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}; "
+        f"{sum(e.count for e in kernels)} kernel launches; largest: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    return busy_ms / wall_ms
+
+
+def bench_profiles():
+    """Device busy share of 10 fwd+bwd and 10 fwd-only iterations of the
+    bench's 512x512 @ 100k loops, and of 2 of each of bench_1080p's."""
+    shares = {}
+    for label, module, iters in (("512x512 @ 100k", bench_main, 10),
+                                 ("1920x1080 @ 1M", bench_1080p, 2)):
+        gs, cam, cfg, _ = module.setup(DEV)
+        target = torch.zeros((3, cfg.height, cfg.width), device=DEV)
+        shares[label] = {
+            "fwd+bwd": device_profile(
+                f"{label} fwd+bwd x{iters}",
+                lambda: bench_common.fwd_bwd_loop(gs, cam, cfg, target, iters, 0.017)),
+            "fwd": device_profile(
+                f"{label} fwd-only x{iters}",
+                lambda: bench_common.fwd_loop(gs, cam, cfg, iters, 0.013)),
+        }
+    return shares
+
+
+def bound(bytes_moved, *ops_rates):
+    """(ms, "bytes" or "operations"): the larger of bytes over the HBM rate
+    and each (operations, rate) pair's time."""
+    b = bytes_moved / HBM_BYTES_S * 1e3
+    o = max(n / r for n, r in ops_rates) * 1e3
+    return max(b, o), ("bytes" if b > o else "operations")
+
+
+def probe_timings(errs, times, launches):
+    """The probes' kernel records: kernel times from the bench path's graph
+    replays (P4's timed here), plain and library times by graph replay,
+    and bounds from the probes' shapes."""
+    pv, ps = perf_vpu_dtype, perf_scan_variants
+    recs = []
+    for name, line, fn_plain, ops in (
+        ("chain_fma", 64, pv.chain_fma_torch,
+         lambda n, rate: ((pv.fma_flops(n), rate),)),
+        ("chain_exp", 89, pv.chain_exp_torch,
+         lambda n, rate: ((pv.exp_count(n), SFU_OPS_S), (pv.exp_count(n), rate))),
+    ):
+        rec = {"name": name, "route": "cuda",
+               "source": "frosting_tpu_torch/csrc/perf_vpu_dtype.cu",
+               "replaces": f"scripts/perf_vpu_dtype.py:{line}",
+               "launches": launches[name]}
+        tpu_name = "chain_fma" if name == "chain_fma" else "chain_exp40"
+        for nm, dt in pv.DTYPES.items():
+            x = pv.probe_input(dt, DEV)
+            key = "" if nm == "f32" else "_bf16"
+            b_ms, b_by = bound(2 * x.numel() * x.element_size(),
+                               *ops(x.numel(), FP32_FLOP_S if nm == "f32" else BF16X2_FLOP_S))
+            rec.update({
+                f"max_abs_err{key}": errs[f"{name}_{nm}"],
+                f"ms{key}": times[f"{tpu_name}_{nm}"],
+                f"plain_ms{key}": graph_ms(lambda: fn_plain(x), 10, 3),
+                f"bound_ms{key}": b_ms, f"bound_by{key}": b_by,
+            })
+        rec["library_ms"] = None
+        rec["library_note"] = (f"no one PyTorch call computes the "
+                               f"{pv.FMA_REPS if name == 'chain_fma' else pv.EXP_REPS}-step chain")
+        recs.append(rec)
+
+    x = ps.probe_input(0, device=DEV)
+    rows = x.shape[0]
+    b_ms, b_by = bound(x.numel() * 4 + rows * 4, (ps.reps_flops(rows), FP32_FLOP_S))
+    recs.append({
+        "name": "scan_reps", "route": "cuda",
+        "source": "frosting_tpu_torch/csrc/perf_scan_variants.cu",
+        "replaces": "scripts/perf_scan_variants.py:76",
+        "launches": launches["scan_reps"],
+        "max_abs_err": max(errs["scan_reps_tpu"], errs["scan_reps_nonzero"]),
+        "ms": times["scan_concat+prod_concat"],
+        "ms_variants": {v: times[v] for v in ps.VARIANTS},
+        "plain_ms": graph_ms(lambda: ps.scan_reps_torch(x), 10, 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": graph_ms(lambda: scan_reps_library(x), 10, 3),
+        "library_note": "30 rounds of torch.cumprod, torch.prod and the update",
+        "launch_floor_ms": times["empty_launch"],
+    })
+    x = ps.probe_input(1, device=DEV)
+    incl, prod = torch.empty_like(x), torch.empty((rows, 1), device=DEV)
+    once_ms = {v: graph_ms(lambda: ps.scan_once(x, v, incl, prod)) for v in ps.VARIANTS}
+    b_ms, b_by = bound(2 * x.numel() * 4 + rows * 4, (ps.once_flops(rows), FP32_FLOP_S))
+    recs.append({
+        "name": "scan_once", "route": "cuda",
+        "source": "frosting_tpu_torch/csrc/perf_scan_variants.cu",
+        "replaces": "scripts/perf_scan_variants.py:116",
+        "launches": launches["scan_once"],
+        "max_abs_err": max(errs["scan_once_tpu"], errs["scan_once_nonzero"]),
+        "ms": once_ms["scan_concat+prod_concat"],
+        "ms_variants": once_ms,
+        "plain_ms": graph_ms(lambda: ps.scan_once_torch(x), 10, 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": graph_ms(lambda: scan_once_library(x)),
+        "library_note": "torch.cumprod followed by torch.prod",
+        "launch_floor_ms": times["empty_launch"],
+    })
+    for r in recs:
+        log(f"{r['name']}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in r.items() if isinstance(v, float)))
+    return recs
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -513,7 +800,8 @@ def main():
 
     # 2. build
     t0 = time.time()
-    logs = _build.build_all(blend_cuda.KERNELS)
+    logs = _build.build_all(
+        blend_cuda.KERNELS + perf_vpu_dtype.KERNELS + perf_scan_variants.KERNELS)
     log(f"build: {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -535,9 +823,7 @@ def main():
     gs = on_card(bench_scene(100_000, 0, -0.7, 0.7, 0.008, 0.04))
     cam = look_at_camera(eye=[0.0, 0.0, -3.0], target=[0, 0, 0], device=DEV)
     with torch.inference_mode():
-        probe = RasterConfig(width=512, height=512, max_instances=1 << 21)
-        cap = autotune_max_instances(count_instances(*gs, cam, probe), 128, safety=1.25)
-        cfg512 = RasterConfig(width=512, height=512, max_instances=cap)
+        cfg512, _ = autotuned_config(gs, cam, 1 << 21, width=512, height=512)
         fields, binned = blend_inputs(gs, cam, cfg512)
         check("512x512 @ 100k", fields, binned, cfg512)
         ms512 = cuda_ms(lambda: blend_cuda.blend_forward(fields, binned, cfg512), 10)
@@ -599,6 +885,8 @@ def main():
         server.shutdown()
         server.server_close()
     serve_launches = blend_cuda.blend_forward.launches
+    serve_counts = {"blend_forward": serve_launches,
+                    "blend_backward": blend_cuda.blend_backward.launches}
     log(f"viewer: 3 renders at {MAIN_W}x{MAIN_H} @ 1M, ms per request "
         f"{[round(t, 1) for t in request_ms]}, forward kernel launches "
         f"{serve_launches}, backward {blend_cuda.blend_backward.launches}")
@@ -662,6 +950,9 @@ def main():
         f"{step_ms:.3f} ms (CUDA events, median of 5), {1e3 / step_ms:.2f} it/s; "
         f"parts (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"; sum {sum(parts.values()):.3f}")
+    reproducible_grads("the train step's view, trained state",
+                       gauss_lib.activate(state.params), tcams[0], rcfg,
+                       lambda image, t_final: l1_loss(image, gt0))
     with torch.inference_mode():
         # the step's own blend inputs: the low-opacity, deep-run case
         label = "the train step's blend inputs"
@@ -677,6 +968,7 @@ def main():
         plain_ms_bs = cuda_ms(lambda: blend_backward_torch(
             f_s, b_s, dataclasses.replace(rcfg, chunk=64), o_s, g_s), 1)
         step = work(f_s, b_s, rcfg)
+        reduction = phase_reduction(f_s, b_s, rcfg, o_s, g_s)
     s_f, s_b = bounds(step)
     log(f"the step's blend inputs alone: {step['instances']} instances, "
         f"{step['pairs']} pre-stop pairs, {step['live']} live; B1 {ms_fs:.4f} ms, "
@@ -689,6 +981,14 @@ def main():
                             TRAIN_EXTENT, tcfg, use_size_prune=True)
     t.mark("densify")
     log(f"densify step: {t.parts()['densify']:.3f} ms")
+    del state, opt
+    torch.cuda.empty_cache()
+
+    # 7. the bench path: the probes held, then the entry points in process
+    probe_err = hold_probes()
+    bench_launches, bench_times = phase_bench()
+    probe_records = probe_timings(probe_err, bench_times, bench_launches)
+    bench_profiles()
 
     def record(name, line, b, sb, times, plain):
         return {
@@ -696,7 +996,13 @@ def main():
             "route": "cuda",
             "source": f"frosting_tpu_torch/csrc/{name}.cu",
             "replaces": f"frosting_tpu/raster/blend_pallas.py:{line}",
+            # the training path's count; each main path's beside it
             "launches": launches[name],
+            "launches_by_path": {
+                "serving": serve_counts[name],
+                "training": launches[name],
+                "bench": bench_launches[name],
+            },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs
             "ms": times[0],
@@ -722,7 +1028,8 @@ def main():
     records = [
         record("blend_forward", 207, b_f, s_f, (ms, ms_fs), (plain_ms, plain_ms_fs)),
         record("blend_backward", 411, b_b, s_b, (ms_b, ms_bs), (plain_ms_b, plain_ms_bs)),
-    ]
+    ] + probe_records
+    records[1]["reduction"] = reduction
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

@@ -1,12 +1,13 @@
 """Builds the CUDA sources under ``csrc/`` into shared libraries with a plain
-C interface, at first use, and loads them with ctypes.
+C interface, at first use, loads them with ctypes, and calls their C
+launchers on PyTorch's current stream.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, where the
 hash covers the source, every header ``csrc/*.cuh`` and the compiler flags,
 so an edited source or header is rebuilt and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them. Importing this module needs neither ``nvcc`` nor a GPU; building
-does.
+and launching do.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -96,3 +99,33 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless t is a contiguous tensor of dtype on device whose shape
+    matches `shape` (None matches any size)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if len(shape) != t.dim() or any(
+        s is not None and s != d for s, d in zip(shape, t.shape)
+    ):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, args: Sequence,
+           device: torch.device) -> None:
+    """Call the C launcher `symbol` of csrc/<name>.cu with args (device
+    pointers as ints, then ints) and, last, the current stream of device.
+    The launcher neither synchronises nor allocates, so a call can be
+    captured in a CUDA graph. Raises on a CUDA error."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")

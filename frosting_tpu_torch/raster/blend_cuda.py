@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from frosting_tpu_torch import _build
+from frosting_tpu_torch._build import check_tensor
 from frosting_tpu_torch.raster.binning import Binned
 from frosting_tpu_torch.raster.blend_torch import (
     blend_backward_torch,
@@ -37,17 +38,6 @@ PATCH_W, PATCH_H = 8, 4
 MAX_BACKWARD_TILE_SIDE = 64
 
 
-def _launcher(name: str, n_pointers: int):
-    """The C launch function of csrc/<name>.cu: n_pointers device pointers,
-    six ints (width, height, tiles_x, n_tiles, tile_w, tile_h), the stream."""
-    fn = getattr(_build.load(name), f"{name}_launch")
-    fn.argtypes = (
-        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def heaviest_first(tile_ranges: torch.Tensor) -> torch.Tensor:
     """[n_tiles] int32 tile ids sorted by run length, longest first
     (stable), on the device: blocks take tiles in this order, so that the
@@ -55,19 +45,6 @@ def heaviest_first(tile_ranges: torch.Tensor) -> torch.Tensor:
     n_tiles ints per launch; the backward's order is the forward's."""
     lens = tile_ranges[:, 1] - tile_ranges[:, 0]
     return torch.argsort(lens, descending=True, stable=True).to(torch.int32)
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if len(shape) != t.dim() or any(
-        s is not None and s != d for s, d in zip(shape, t.shape)
-    ):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
 def blend_forward(
@@ -110,8 +87,8 @@ def blend_backward(
             f"up to {MAX_BACKWARD_TILE_SIDE}"
         )
     image = (4, cfg.height, cfg.width)
-    _check("out", out, torch.float32, image, fields.device)
-    _check("g_out", g_out, torch.float32, image, fields.device)
+    check_tensor("out", out, torch.float32, image, fields.device)
+    check_tensor("g_out", g_out, torch.float32, image, fields.device)
     # rows of instances past every pixel's stop are never written
     grads = torch.zeros((binned.inst_gauss.shape[0], INSTANCE_WIDTH),
                         dtype=torch.float32, device=fields.device)
@@ -125,9 +102,9 @@ def _check_inputs(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
     if fields.device.type != "cuda":
         raise ValueError(f"no blend kernel for device {fields.device}")
     dev = fields.device
-    _check("fields", fields, torch.float32, (None, INSTANCE_WIDTH), dev)
-    _check("inst_gauss", binned.inst_gauss, torch.int32, (None,), dev)
-    _check("tile_ranges", binned.tile_ranges, torch.int32, (cfg.n_tiles, 2), dev)
+    check_tensor("fields", fields, torch.float32, (None, INSTANCE_WIDTH), dev)
+    check_tensor("inst_gauss", binned.inst_gauss, torch.int32, (None,), dev)
+    check_tensor("tile_ranges", binned.tile_ranges, torch.int32, (cfg.n_tiles, 2), dev)
     if fields.shape[0] < 1:
         raise ValueError("fields must hold at least the sentinel row")
     if cfg.tile_pixels > MAX_THREADS_PER_BLOCK:
@@ -143,20 +120,17 @@ def _check_inputs(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
 
 
 def _launch(name: str, *tensors, cfg: RasterConfig) -> None:
-    """Launch csrc/<name>.cu on the tensors' current stream; raise on a
-    CUDA error."""
-    fn = _launcher(name, len(tensors))
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            *(t.data_ptr() for t in tensors),
-            cfg.width, cfg.height, cfg.tiles_x, cfg.n_tiles,
-            cfg.tile_w, cfg.tile_h,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    """Launch csrc/<name>.cu on the tensors' current stream: device
+    pointers, six ints (width, height, tiles_x, n_tiles, tile_w, tile_h);
+    raise on a CUDA error."""
+    _build.launch(
+        name, f"{name}_launch",
+        [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 6,
+        [t.data_ptr() for t in tensors] + [
+            cfg.width, cfg.height, cfg.tiles_x, cfg.n_tiles, cfg.tile_w,
+            cfg.tile_h],
+        tensors[0].device,
+    )
 
 
 # Kernel launches since the count was last reset (CPU calls are not counted).

@@ -4,12 +4,13 @@ Counterpart of ``frosting_tpu/raster/render.py``. The autograd boundary
 (``BlendFunction``) wraps only binning and the blend, as JAX's custom VJP
 ``_blend`` does: its backward runs the backward blend (the CUDA kernel
 ``csrc/blend_backward.cu`` on the GPU, the plain version on the CPU) and
-sums the per-instance gradient rows into per-Gaussian rows with one
-``index_add_`` over the instances' Gaussian ids (JAX's payload sorts and
-prefix differences, ``render.py:117-201``, exist for the TPU). On the GPU
-that sum is taken with atomics, so its order, and the last bits of a
-Gaussian's gradient, vary from run to run. Gradients through preprocess
-come from autograd.
+sums the per-instance gradient rows into per-Gaussian rows in a fixed
+order (``sum_rows_by_gaussian``: a stable sort of the instances by Gaussian
+id, then one sequential sum per Gaussian in sorted order; JAX's payload
+sorts and prefix differences, ``render.py:117-201``, exist for the TPU). No
+step of the backward uses atomics on floats, so render gradients are
+bitwise reproducible from run to run on the card, as they are in JAX.
+Gradients through preprocess come from autograd.
 """
 
 from __future__ import annotations
@@ -52,6 +53,25 @@ def autotune_max_instances(
     return -(-cap // chunk) * chunk
 
 
+def sum_rows_by_gaussian(
+    rows: torch.Tensor,  # [M, W] per-instance rows
+    inst_gauss: torch.Tensor,  # [M] int32 Gaussian id of each row
+    n_rows: int,  # rows of the result (Gaussians + the sentinel)
+) -> torch.Tensor:
+    """[n_rows, W]: the sum of each Gaussian's instance rows, taken in a
+    fixed order: the rows are ordered by Gaussian id with a stable sort,
+    and each Gaussian's run is summed sequentially in that order
+    (``segment_reduce`` over offsets found by ``searchsorted``, which needs
+    no host sync). ``index_add_`` would sum with atomics on the GPU, whose
+    order, and so the last bits of the result, change from run to run."""
+    ids, order = torch.sort(inst_gauss, stable=True)
+    bounds = torch.arange(n_rows + 1, device=ids.device, dtype=ids.dtype)
+    offsets = torch.searchsorted(ids, bounds)
+    return torch.segment_reduce(
+        rows[order], "sum", offsets=offsets, axis=0, unsafe=True, initial=0.0
+    )
+
+
 class BlendFunction(torch.autograd.Function):
     """fields [N + 1, 9] (pack_fields) -> (out [4, H, W], num_instances,
     overflow), differentiable in fields. rect, depths and valid come in
@@ -75,8 +95,7 @@ class BlendFunction(torch.autograd.Function):
         binned = Binned(inst_gauss, tile_ranges, None, None)
         rows = ctx.backward_fn(fields, binned, ctx.cfg, out, g_out.contiguous())
         # the sentinel row (last) is no instance's Gaussian: it stays zero
-        dfields = torch.zeros_like(fields)
-        dfields.index_add_(0, inst_gauss.long(), rows)
+        dfields = sum_rows_by_gaussian(rows, inst_gauss, fields.shape[0])
         return dfields, None, None, None, None, None, None
 
 

@@ -1,7 +1,8 @@
-"""The CUDA blend kernels on the card against their plain PyTorch versions,
-the render's gradients through them, and one train step. Marked `gpu`: every
-test skips without a CUDA device. This file imports no JAX, so it also runs
-on a machine without it:
+"""The CUDA kernels on the card against their plain PyTorch versions: the
+blend kernels, the render's gradients through them (bitwise reproducible
+over two calls) and one train step; the probes P1-P4 of the bench
+entry points. Marked `gpu`: every test skips without a CUDA device. This
+file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 """
@@ -10,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from frosting_tpu_torch.bench import perf_scan_variants as ps
+from frosting_tpu_torch.bench import perf_vpu_dtype as pv
+from frosting_tpu_torch.bench.common import bench_scene, graph_ms
 from frosting_tpu_torch.cameras import look_at_camera
 from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.raster import blend_cuda
@@ -19,7 +23,7 @@ from frosting_tpu_torch.raster.blend_torch import (
     blend_forward_torch,
 )
 from frosting_tpu_torch.raster.preprocess import pack_fields, preprocess
-from frosting_tpu_torch.raster.render import BlendFunction
+from frosting_tpu_torch.raster.render import BlendFunction, render
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import (
     adversarial_blend_inputs,
@@ -212,3 +216,104 @@ def test_one_train_step_on_the_card(cuda):
     assert np.isfinite(float(m["loss"])) and not bool(m["overflow"])
     assert not torch.equal(state.params.means3d, before)
     assert int(state.opt_state.count["means3d"]) == 1
+
+
+def test_render_gradients_are_bitwise_reproducible(cuda):
+    """tests/test_determinism.py's property of the JAX package on the card:
+    two calls give bitwise-equal gradients of all five inputs. bench.py's
+    scene at 512x512 puts each Gaussian in several tiles, so a sum of its
+    instance rows with float atomics (index_add_) varies between calls."""
+    gs = [torch.from_numpy(a).to(cuda) for a in bench_scene(100_000, 0, -0.7, 0.7, 0.008, 0.04)]
+    cam = look_at_camera(eye=[0.0, 0.0, -3.0], target=[0, 0, 0], device=cuda)
+    cfg = RasterConfig(width=512, height=512, max_instances=1 << 21)
+    target = torch.rand((3, 512, 512), generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in gs]
+        out = render(*leaves, cam, cfg)
+        loss = torch.mean((out.image - target) ** 2) + 0.1 * torch.mean(out.t_final)
+        return torch.autograd.grad(loss, leaves)
+
+    for a, b in zip(grads(), grads()):
+        assert torch.equal(a, b)
+
+
+def _bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("shape", [pv.SHAPE, (3, 334)], ids=["tpu-shape", "odd"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("probe", ["chain_fma", "chain_exp"])
+def test_chain_kernels_match_plain_versions(cuda, probe, dtype, shape):
+    """P1: rtol 1e-6 in float32, 1 ulp in bf16 (0.25 y is exact, so each
+    step rounds once on both sides); P2: rtol 1e-5 in float32, 1e-2 in bf16
+    (other exp implementations)."""
+    x = pv.probe_input(pv.DTYPES[dtype], cuda, shape=shape)
+    fn, plain = getattr(pv, probe), getattr(pv, probe + "_torch")
+    before = fn.launches
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(x).float()
+    err = (got.float() - ref).abs()
+    if probe == "chain_fma":
+        tol = 1e-6 * ref.abs() if dtype == "f32" else _bf16_ulp(ref)
+    else:
+        tol = (1e-5 if dtype == "f32" else 1e-2) * ref.abs()
+    assert torch.isfinite(got).all() and bool((err <= tol).all())
+
+
+@pytest.mark.parametrize("lo", [0.9, ps.NONZERO_LO], ids=["tpu-input", "nonzero"])
+@pytest.mark.parametrize("variant", list(ps.VARIANTS))
+def test_scan_kernels_match_plain_versions(cuda, variant, lo):
+    """P3 and P4 against their plain versions, which multiply in the same
+    order: rtol 2e-5, values under 1e-30 held by atol 1e-30 alone; in fact
+    bitwise equal."""
+    for seed in (0, 1):
+        x = ps.probe_input(seed, lo=lo, device=cuda)
+        acc = ps.scan_reps(x, variant)
+        incl, prod = ps.scan_once(x, variant)
+        torch.cuda.synchronize()
+        for got, ref in ((acc, ps.scan_reps_torch(x)),
+                         (incl, ps.scan_once_torch(x)[0]),
+                         (prod, ps.scan_once_torch(x)[1])):
+            assert torch.isfinite(got).all()
+            assert bool(((got - ref).abs() <= 1e-30 + 2e-5 * ref.abs()).all())
+            assert torch.equal(got, ref)
+
+
+def test_scan_kernels_take_any_row_count(cuda):
+    x = ps.probe_input(2, lo=ps.NONZERO_LO, device=cuda)[:7].contiguous()
+    assert torch.equal(ps.scan_reps(x), ps.scan_reps_torch(x))
+    incl, prod = ps.scan_once(x, "scan_roll+prod_roll")
+    ref_i, ref_p = ps.scan_once_torch(x)
+    assert torch.equal(incl, ref_i) and torch.equal(prod, ref_p)
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = pv.probe_input(torch.float32, cuda, shape=(4, 8))
+    with pytest.raises(TypeError):
+        pv.chain_fma(x.double())
+    with pytest.raises(ValueError):
+        pv.chain_fma(x, out=torch.empty((4, 9), device=cuda))
+    with pytest.raises(ValueError):
+        pv.chain_exp(x.to(torch.bfloat16).reshape(-1)[1:])
+    s = ps.probe_input(0, device=cuda)
+    with pytest.raises(ValueError):
+        ps.scan_reps(s[:, :64].contiguous())
+    with pytest.raises(ValueError):
+        ps.scan_once(s, "scan_shift+prod_tree")
+    with pytest.raises(ValueError):
+        ps.scan_reps(s, out=torch.empty((512, 1)))
+
+
+def test_probe_launches_replay_in_a_cuda_graph(cuda):
+    x = pv.probe_input(torch.float32, cuda)
+    out = torch.empty_like(x)
+    ms = graph_ms(lambda: pv.chain_fma(x, out), iters=10, repeats=2)
+    assert 0 < ms < 10
+    assert torch.equal(out, pv.chain_fma_torch(x))
+    floor = graph_ms(lambda: ps.empty_launch(cuda), iters=10, repeats=2)
+    assert 0 < floor < ms

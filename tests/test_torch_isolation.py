@@ -52,6 +52,8 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.scene.synthetic, frosting_tpu_torch.scene.gaussians\n"
         "import frosting_tpu_torch.train.gs_trainer, frosting_tpu_torch.ops.ssim\n"
         "import frosting_tpu_torch.train.checkpoint, frosting_tpu_torch.utils.profiling\n"
+        "import frosting_tpu_torch.bench.__main__, frosting_tpu_torch.bench.bench_1080p\n"
+        "import frosting_tpu_torch.bench.perf_vpu_dtype, frosting_tpu_torch.bench.perf_scan_variants\n"
         "assert 'optax' not in sys.modules\n"
         "assert not any(m == 'frosting_tpu' or m.startswith('frosting_tpu.')\n"
         "               for m in sys.modules)\n"
