@@ -42,8 +42,10 @@ Phases (any failure raises and exits nonzero):
      in process: perf_vpu_dtype and perf_scan_variants (graph-replay times
      and rates, the empty-launch floor, P4's variants cross-checked),
      bench's 512x512 @ 100k and bench_1080p's 1920x1080 @ 1M (their JSON
-     lines); then the probes' plain and library times and bounds, and the
-     device's busy share over the bench loops (torch.profiler).
+     lines); then the probes' plain and library times and bounds (for the
+     scans also each variant's time above the empty-launch floor and the
+     bound of its shuffles and shared-memory accesses), and the device's
+     busy share over the bench loops (torch.profiler).
 The three main paths (4, 5 and 7) reset the kernels' launch counts just
 before and read them just after. The line before the last is the JSON
 kernels record; the last line is {"ok": true, "device": {...}}.
@@ -71,6 +73,7 @@ from frosting_tpu_torch.bench.common import (
     BF16X2_FLOP_S,
     FP32_FLOP_S,
     HBM_BYTES_S,
+    PIPE_OPS_S,
     SFU_OPS_S,
     autotuned_config,
     bench_scene,
@@ -746,9 +749,24 @@ def probe_timings(errs, times, launches):
                                f"{pv.FMA_REPS if name == 'chain_fma' else pv.EXP_REPS}-step chain")
         recs.append(rec)
 
+    floor = times["empty_launch"]
+
+    def scan_layout(ms, lanes, table, rounds):
+        """The variants' times above the empty-launch floor, and the bound
+        of the layout's shuffles and shared-memory accesses."""
+        return {
+            "ms_above_floor": ms["scan_concat+prod_concat"] - floor,
+            "ms_above_floor_variants": {v: t - floor for v, t in ms.items()},
+            "lanes_per_row": lanes,
+            "pipe_bound_ms_variants": {
+                v: rows * rounds * ps.pipe_ops(lanes, *f, table) / PIPE_OPS_S * 1e3
+                for v, f in ps.VARIANTS.items()},
+        }
+
     x = ps.probe_input(0, device=DEV)
     rows = x.shape[0]
     b_ms, b_by = bound(x.numel() * 4 + rows * 4, (ps.reps_flops(rows), FP32_FLOP_S))
+    reps_ms = {v: times[v] for v in ps.VARIANTS}
     recs.append({
         "name": "scan_reps", "route": "cuda",
         "source": "frosting_tpu_torch/csrc/perf_scan_variants.cu",
@@ -756,12 +774,13 @@ def probe_timings(errs, times, launches):
         "launches": launches["scan_reps"],
         "max_abs_err": max(errs["scan_reps_tpu"], errs["scan_reps_nonzero"]),
         "ms": times["scan_concat+prod_concat"],
-        "ms_variants": {v: times[v] for v in ps.VARIANTS},
+        "ms_variants": reps_ms,
         "plain_ms": graph_ms(lambda: ps.scan_reps_torch(x), 10, 3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": graph_ms(lambda: scan_reps_library(x), 10, 3),
         "library_note": "30 rounds of torch.cumprod, torch.prod and the update",
-        "launch_floor_ms": times["empty_launch"],
+        "launch_floor_ms": floor,
+        **scan_layout(reps_ms, ps.REPS_LANES, True, ps.REPS),
     })
     x = ps.probe_input(1, device=DEV)
     incl, prod = torch.empty_like(x), torch.empty((rows, 1), device=DEV)
@@ -779,7 +798,8 @@ def probe_timings(errs, times, launches):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": graph_ms(lambda: scan_once_library(x)),
         "library_note": "torch.cumprod followed by torch.prod",
-        "launch_floor_ms": times["empty_launch"],
+        "launch_floor_ms": floor,
+        **scan_layout(once_ms, ps.ONCE_LANES, False, 1),
     })
     for r in recs:
         log(f"{r['name']}: " + ", ".join(

@@ -39,11 +39,16 @@ from frosting_tpu_torch.raster.render import (
 # lanes x 2 flops x 1.98 GHz. The SFU issues 16 transcendentals per SM per
 # clock: 132 x 16 x 1.98e9 = 4.18e12 exp/s. Packed bf16x2 FMA outside the
 # tensor cores runs at twice the FP32 rate (the Hopper white paper's
-# 133.8 TFLOP/s "BF16 non-tensor").
+# 133.8 TFLOP/s "BF16 non-tensor"). Shuffles and conflict-free 4-byte
+# shared-memory accesses each issue one warp-wide instruction per clock
+# per SM (the CUDA guide's throughput table: 32 results per clock).
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-SFU_OPS_S = 132 * 16 * (FP32_FLOP_S / (132 * 128 * 2))
+SMS = 132
+CLOCK_HZ = FP32_FLOP_S / (SMS * 128 * 2)
+SFU_OPS_S = SMS * 16 * CLOCK_HZ
 BF16X2_FLOP_S = 2 * FP32_FLOP_S
+PIPE_OPS_S = SMS * CLOCK_HZ
 
 
 def smi() -> str:

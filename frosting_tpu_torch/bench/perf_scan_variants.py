@@ -4,11 +4,16 @@ rows of 128 and the product of the scanned row, accumulated, over
 variants of the TPU script.
 
 Port of ``scripts/perf_scan_variants.py`` (its Pallas kernels ``timed`` at
-:76 and ``once`` at :116). The kernels are ``csrc/perf_scan_variants.cu``;
-on the CPU the wrappers run the plain PyTorch versions beside them, which
-multiply in the kernels' order (Hillis-Steele scan, halving-tree product,
-as ``frosting_tpu/raster/chunk_math.py``), so all agree bitwise. Run on a
-CUDA card:
+:76 and ``once`` at :116). The kernels are ``csrc/perf_scan_variants.cu``:
+a row is held by a segment of ``REPS_LANES`` (P3) or ``ONCE_LANES`` (P4)
+lanes, so that only the scan's and the product's first log2(lanes) steps
+cross lanes ("concat": through shared memory; "roll": by warp shuffles).
+P3 gives each row a block that runs the 30 rounds in parallel, one per
+segment, from a shared table of the rounds' inputs, and adds the rounds'
+products in round order. On the CPU the wrappers run the plain PyTorch
+versions beside them, which multiply in the kernels' order (Hillis-Steele
+scan, halving-tree product, as ``frosting_tpu/raster/chunk_math.py``), so
+all agree bitwise. Run on a CUDA card:
 
     python -m frosting_tpu_torch.bench.perf_scan_variants
 
@@ -39,6 +44,9 @@ from frosting_tpu_torch.bench.common import graph_ms
 
 KERNELS = ("perf_scan_variants",)
 P, K, REPS = 512, 128, 30
+# lanes per row of P3 and P4: SCAN_REPS_LANES and SCAN_ONCE_LANES of the
+# CUDA source
+REPS_LANES, ONCE_LANES = 4, 16
 NONZERO_LO = 0.9995
 # (roll_scan, roll_prod), in the TPU script's order
 VARIANTS = {
@@ -106,6 +114,19 @@ def reps_flops(rows: int) -> int:
 def once_flops(rows: int) -> int:
     """FP32 operations one P4 call needs: one scan and one tree per row."""
     return rows * (SCAN_PRODUCTS + K - 1)
+
+
+def pipe_ops(lanes: int, roll_scan: int, roll_prod: int, table: bool) -> float:
+    """Warp-wide shuffles and 4-byte shared-memory accesses per row and
+    round of the kernels' layout at `lanes` lanes per row: each of the
+    log2(lanes) cross-lane scan steps moves 128 / lanes registers (a
+    shuffle each for roll, a store and a load for concat) and each of the
+    log2(lanes) cross-lane tree levels one (a shuffle; a store and a load),
+    for the 32 / lanes rows of a warp; P3's table of the rounds' inputs
+    (`table`) adds 4 warp-wide stores and 4 loads."""
+    steps = lanes.bit_length() - 1
+    per_warp = steps * (K // lanes) * (1 if roll_scan else 2) + steps * (1 if roll_prod else 2)
+    return per_warp * lanes / 32 + (8 if table else 0)
 
 
 def _variant(variant: str) -> Tuple[int, int]:

@@ -292,6 +292,34 @@ def test_scan_kernels_take_any_row_count(cuda):
     assert torch.equal(incl, ref_i) and torch.equal(prod, ref_p)
 
 
+@pytest.mark.parametrize("rows", [1, 7, 129, 513])
+def test_scan_kernels_take_rows_off_the_grid(cuda, rows):
+    """Row counts that fill neither P3's blocks of one row nor P4's warps of
+    32 / ONCE_LANES rows evenly, every variant, bitwise."""
+    x = np.random.default_rng(rows).uniform(ps.NONZERO_LO, 1.0, (rows, ps.K))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    ref_acc = ps.scan_reps_torch(x)
+    ref_incl, ref_prod = ps.scan_once_torch(x)
+    for variant in ps.VARIANTS:
+        acc = ps.scan_reps(x, variant, out=torch.full((rows, 1), np.nan, device=cuda))
+        incl, prod = ps.scan_once(x, variant, incl=torch.full_like(x, np.nan),
+                                  prod=torch.full((rows, 1), np.nan, device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref_acc), variant
+        assert torch.equal(incl, ref_incl) and torch.equal(prod, ref_prod), variant
+
+
+def test_scan_rounds_kernel_is_bitwise_reproducible(cuda):
+    """Two launches of P3 give the same bits, in every variant: the 30
+    rounds run in parallel, but their products are added in round order."""
+    x = ps.probe_input(3, lo=ps.NONZERO_LO, device=cuda)
+    for variant in ps.VARIANTS:
+        first = ps.scan_reps(x, variant)
+        second = ps.scan_reps(x, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), variant
+
+
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = pv.probe_input(torch.float32, cuda, shape=(4, 8))
     with pytest.raises(TypeError):

@@ -17,6 +17,8 @@ The kernels themselves are held against these plain versions on the card
 in tests/test_torch_cuda.py (marked gpu), which imports no JAX.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,6 +120,41 @@ def test_plain_scan_rounds_match_chunk_math(lo):
     got = ps.scan_reps(x).numpy()
     ref = np.asarray(_jax_scan_reps(jnp.asarray(x.numpy())))
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("lo", [0.9, ps.NONZERO_LO], ids=["tpu-input", "nonzero"])
+def test_scan_rounds_are_independent_but_for_the_sum(lo):
+    """The premise of P3's kernel, which runs the 30 rounds in parallel:
+    y_r, computed from x by r updates of its own, and the 30 products
+    tree_prod(cumprod(y_r)) added in round order from 0.0, give
+    scan_reps_torch bitwise."""
+    x = ps.probe_input(0, lo=lo, device="cpu")
+    prods = []
+    for r in range(ps.REPS):
+        y = x
+        for _ in range(r):
+            y = y * 0.999 + 1e-4
+        prods.append(ps.tree_prod_torch(ps.cumprod_torch(y)))
+    acc = torch.zeros((x.shape[0], 1))
+    for p in prods:
+        acc = acc + p
+    assert torch.equal(acc, ps.scan_reps_torch(x))
+
+
+def test_kernel_layout_and_its_pipe_counts():
+    """The wrapper's lanes per row are the CUDA source's defaults, and the
+    shuffle and shared-access counts per row and round that PERF.md and
+    the source note give: P3 at 4 lanes, roll/roll 8.25 (+ 8 for its table
+    of the rounds' inputs), concat/concat 16.5 (+ 8); P4 at 16 lanes, 18
+    and 36; one warp per row (32 lanes) needs 25 shuffles for roll/roll."""
+    src = (Path(ps.__file__).parents[1] / "csrc" / "perf_scan_variants.cu").read_text()
+    assert f"#define SCAN_REPS_LANES {ps.REPS_LANES}\n" in src
+    assert f"#define SCAN_ONCE_LANES {ps.ONCE_LANES}\n" in src
+    assert ps.pipe_ops(4, 1, 1, table=True) == 8.25 + 8
+    assert ps.pipe_ops(4, 0, 0, table=True) == 16.5 + 8
+    assert ps.pipe_ops(16, 1, 1, table=False) == 18
+    assert ps.pipe_ops(16, 0, 0, table=False) == 36
+    assert ps.pipe_ops(32, 1, 1, table=False) == 25
 
 
 def test_the_tpu_input_underflows_and_the_nonzero_input_does_not():
