@@ -46,21 +46,33 @@ Phases (any failure raises and exits nonzero):
      scans also each variant's time above the empty-launch floor and the
      bound of its shuffles and shared-memory accesses), and the device's
      busy share over the bench loops (torch.profiler).
-The three main paths (4, 5 and 7) reset the kernels' launch counts just
+  8. stages path at full width: a COLMAP scene on disk (8 PNG views at
+     1920x1080 of the 1M scene, rendered with B1; PINHOLE poses; the 1M
+     means as points3D.bin) goes through the port's command line in
+     process: stages_cli train-gs (30 iterations), render (one PNG decoded
+     back and held equal to the render it came from) and train-sugar for
+     each of density, sdf and dn_consistency from the 1M model's gs.ply,
+     iterations 8990-9010 (entropy, photo with the hard prune at 9000,
+     sdf); finite losses, PSNR held within a margin, 55-80% of the
+     Gaussians left by the prune, sugar.ply loads back. Then the decode of
+     a 1080p PNG, the scene load, compute_knn at 1M and a SuGaR step per
+     phase and method part by part are timed, and B1 and B2 are held
+     against their plain versions on a dn_consistency depth render's
+     inputs, with the transmittance cotangent that depth / acc gives.
+The four main paths (4, 5, 7 and 8) reset the kernels' launch counts just
 before and read them just after. The line before the last is the JSON
 kernels record; the last line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
 import json
+import math
 import os
 import statistics
-import struct
 import sys
 import tempfile
 import time
 import urllib.request
-import zlib
 
 import numpy as np
 import torch
@@ -99,12 +111,15 @@ from frosting_tpu_torch.raster.render import (
     count_instances,
     sum_rows_by_gaussian,
 )
+from frosting_tpu_torch import stages_cli
+from frosting_tpu_torch.models import sugar as sugar_lib
 from frosting_tpu_torch.ops.ssim import l1_loss, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import adversarial_blend_inputs
-from frosting_tpu_torch.train import gs_trainer
+from frosting_tpu_torch.train import gs_trainer, sugar_trainer
 from frosting_tpu_torch.train import optimizer as opt_lib
+from frosting_tpu_torch.utils import image as image_io
 from frosting_tpu_torch.utils import viewer
 
 # The card's peak rates are in frosting_tpu_torch/bench/common.py.
@@ -125,6 +140,12 @@ FLOPS_PER_PAIR_BWD, SFU_PER_PAIR_BWD = 42, 2
 ATOL = RTOL = 1e-5
 FLIP_SHARE, FLIP_BOUND = 1e-3, 1e-2
 BWD_OFF_SHARE, BWD_OFF_MIN = 1e-5, 18
+DEPTH_ERR_FACTOR = 2  # see compare_backward_float64
+# On the depth render's inputs the kernel and the plain float32 walk may
+# differ past the tolerance above in at most this share of the values, by
+# at most this normalised error: twice the largest of three readings on
+# the H100 (6,964 of 3.3e7 values, 1.36e-4; PERF.md).
+DEPTH_VS_PLAIN_OFF_SHARE, DEPTH_VS_PLAIN_MAX_NORM = 4.2e-4, 2.8e-4
 # Render gradients, kernels vs plain, normalised by the largest magnitude:
 # the render-vs-oracle gradient tolerance of tests/test_raster.py.
 GRAD_ATOL = 5e-4
@@ -140,6 +161,18 @@ TRAIN_CAPACITY = 1 << 21
 TRAIN_JITTER = 0.003  # world units; the scene's scales are 0.003-0.015
 # 3DGS sets it to 1.1 x the cameras' largest distance from their centre
 TRAIN_EXTENT = 1.1 * ORBIT_R
+# Stages path: 8 views around the orbit at r 3.5, every command with a
+# max_instances far above a view's ~3.7-4.2M instances (binning sizes its
+# buffers to the real count), so that no render overflows.
+STAGE_ORBITS = tuple((2 * math.pi * i / 8, 0.15 + 0.15 * (i % 3)) for i in range(8))
+STAGE_MAX_INSTANCES = 1 << 24
+STAGE_GS_ITERS = 30
+SUGAR_FROM, SUGAR_TO = 8990, 9010  # entropy to 8999, photo + prune at 9000, sdf
+SUGAR_METHODS = ("density", "sdf", "dn_consistency")
+# PSNR of a log step's own view: the first log step (9000) comes right
+# after the prune and the last (9010) after ten sdf steps, on another view
+SUGAR_PSNR_MARGIN = 3.0  # dB
+PRUNE_KEEP = (0.55, 0.80)  # opacities U(0.3, 0.95): ~69% are >= 0.5
 DEV = "cuda"
 
 
@@ -202,14 +235,8 @@ def compare(label, fields, binned, cfg):
     return max_err
 
 
-def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
-    """B2 vs its plain version on the same inputs (B1's output and the
-    cotangent g, by default a seeded one with colour and T parts); two
-    launches must give bitwise-equal rows. Returns max abs error."""
-    out = blend_cuda.blend_forward(fields, binned, cfg)
-    if g is None:
-        gen = torch.Generator(device=DEV).manual_seed(0)
-        g = torch.randn(out.shape, generator=gen, device=DEV)
+def backward_twice(label, fields, binned, cfg, out, g):
+    """B2's rows on the inputs; two launches must be bitwise equal."""
     before = blend_cuda.blend_backward.launches
     rows = blend_cuda.blend_backward(fields, binned, cfg, out, g)
     again = blend_cuda.blend_backward(fields, binned, cfg, out, g)
@@ -218,21 +245,79 @@ def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
         raise AssertionError(f"{label}: the backward kernel's count did not rise")
     if not torch.equal(rows, again):
         raise AssertionError(f"{label}: two backward launches differ")
-    del again
-    plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk or cfg.chunk)
-    ref = blend_backward_torch(fields, binned, plain_cfg, out, g)
     if not torch.isfinite(rows).all():
         raise AssertionError(f"{label}: backward kernel output not finite")
-    scale = ref.abs().amax(dim=0).clamp_min(1e-30)  # per gradient column
-    err = (rows - ref).abs()
+    return rows
+
+
+def backward_off(rows, ref):
+    """(values off the tolerance, max normalised error, max abs error) of
+    gradient rows against ref, each column normalised by ref's largest
+    magnitude in it."""
+    scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+    err = (rows.to(ref.dtype) - ref).abs()
     off = int((err / scale > ATOL + RTOL * ref.abs() / scale).sum())
-    max_err = err.max().item()
+    return off, (err / scale).max().item(), err.max().item()
+
+
+def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
+    """B2 vs its plain version on the same inputs (B1's output and the
+    cotangent g, by default a seeded one with colour and T parts); two
+    launches must give bitwise-equal rows. Returns max abs error."""
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    if g is None:
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        g = torch.randn(out.shape, generator=gen, device=DEV)
+    rows = backward_twice(label, fields, binned, cfg, out, g)
+    plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk or cfg.chunk)
+    ref = blend_backward_torch(fields, binned, plain_cfg, out, g)
+    off, max_norm, max_err = backward_off(rows, ref)
     log(f"{label} backward: rows {rows.shape[0]} max_abs_err {max_err:.3e} "
-        f"max_normalised_err {(err / scale).max().item():.3e} "
-        f"off_tol {off} of {err.numel()}; two launches bitwise equal")
-    if off > max(BWD_OFF_SHARE * err.numel(), BWD_OFF_MIN):
+        f"max_normalised_err {max_norm:.3e} "
+        f"off_tol {off} of {rows.numel()}; two launches bitwise equal")
+    if off > max(BWD_OFF_SHARE * rows.numel(), BWD_OFF_MIN):
         raise AssertionError(f"{label}: backward kernel disagrees with the plain version")
     return max_err
+
+
+def compare_backward_float64(label, fields, binned, cfg, g, plain_chunk=64):
+    """B2 on inputs whose colours leave [0, 1] (a depth render's: ~2.5-4.5),
+    held with the plain float32 version against the plain version in
+    float64. The suffix trick's dalpha = u T - gS / (1 - alpha) subtracts
+    colour-sized sums, so the rounding of any float32 walk grows with |c|
+    while the gradients, which follow colour differences, do not: neither
+    float32 version holds the tolerance above against the other here. The
+    kernel's values off that tolerance against float64 may be at most
+    DEPTH_ERR_FACTOR times the plain float32 version's (or the count
+    allowed above), and so may its largest normalised error; against the
+    plain float32 version, DEPTH_VS_PLAIN_OFF_SHARE of the values may be
+    off, by at most DEPTH_VS_PLAIN_MAX_NORM. Returns the kernel's max abs
+    error against float64."""
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    rows = backward_twice(label, fields, binned, cfg, out, g)
+    plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk)
+    plain = blend_backward_torch(fields, binned, plain_cfg, out, g)
+    f64 = fields.double()
+    ref = blend_backward_torch(f64, binned, plain_cfg,
+                               blend_forward_torch(f64, binned, plain_cfg), g.double())
+    k_off, k_norm, k_err = backward_off(rows, ref)
+    p_off, p_norm, _ = backward_off(plain, ref)
+    o_off, o_norm, _ = backward_off(rows, plain)
+    log(f"{label} backward against float64: rows {rows.shape[0]}; kernel off_tol "
+        f"{k_off}, max_normalised_err {k_norm:.3e}, max_abs_err {k_err:.3e}; plain float32 "
+        f"off_tol {p_off}, max_normalised_err {p_norm:.3e}; kernel vs plain float32 "
+        f"off_tol {o_off}, max_normalised_err {o_norm:.3e}; of {rows.numel()} values; "
+        "two launches bitwise equal")
+    allowed = max(DEPTH_ERR_FACTOR * p_off, BWD_OFF_SHARE * rows.numel(), BWD_OFF_MIN)
+    if k_off > allowed or k_norm > DEPTH_ERR_FACTOR * max(p_norm, ATOL):
+        raise AssertionError(f"{label}: backward kernel less accurate than the plain version")
+    if o_off > DEPTH_VS_PLAIN_OFF_SHARE * rows.numel() or o_norm > DEPTH_VS_PLAIN_MAX_NORM:
+        raise AssertionError(f"{label}: backward kernel disagrees with the plain version")
+    return k_err, {"values": rows.numel(), "kernel_off_tol": k_off,
+                   "kernel_max_normalised_err": k_norm, "plain_f32_off_tol": p_off,
+                   "plain_f32_max_normalised_err": p_norm,
+                   "kernel_vs_plain_f32_off_tol": o_off,
+                   "kernel_vs_plain_f32_max_normalised_err": o_norm}
 
 
 def render_grads(gs, cam, cfg, loss_of, bg=None):
@@ -287,24 +372,6 @@ def phase_render_gradients(gs, cam, cfg):
         log(f"render gradient {name}: max normalised err {err:.3e} (max |grad| {scale:.3e})")
         if not (scale > 0 and err <= GRAD_ATOL and torch.isfinite(a).all()):
             raise AssertionError(f"render gradient of {name} disagrees with the plain versions")
-
-
-def decode_png(data):
-    """8-bit RGB PNG with filter 0 rows (the port's encoder) -> [H, W, 3]."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError("not a PNG")
-    pos, idat, ihdr = 8, b"", None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h = ihdr[:2]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    return rows[:, 1:].reshape(h, w, 3)
 
 
 def get(base, path):
@@ -807,6 +874,188 @@ def probe_timings(errs, times, launches):
     return recs
 
 
+def host_ms(fn, reps):
+    """Median host-clock ms of fn over reps calls (each ends in a sync)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_stages(raw, model):
+    """The stages main path: a COLMAP scene of the 1M model written to disk
+    and driven through stages_cli in process (train-gs, render, train-sugar
+    for each method), then its timings and the depth-render check of B1
+    and B2. Returns (launches per kernel of the commands, timings)."""
+    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+        t0 = time.time()
+        paths = synthetic.write_colmap_scene(scene_dir, model, cams, rcfg)
+        log(f"stages: COLMAP scene of {len(cams)} PNG views at {MAIN_W}x{MAIN_H} and "
+            f"{MAIN_N} points written in {time.time() - t0:.1f} s")
+        timings["png_decode_1080p_ms"] = host_ms(lambda: image_io.read_image(paths[0]), 5)
+        common = ["-s", scene_dir, "-o", out, "--max-instances", str(STAGE_MAX_INSTANCES),
+                  "--device", DEV]
+        args = stages_cli.build_parser().parse_args(["render", *common])
+        t0 = time.perf_counter()
+        scene, scams, gt, srcfg = stages_cli._load_scene(args)
+        timings["scene_load_ms"] = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            want = np.clip(render(*model, cams[0], rcfg).image.cpu().numpy(), 0, 1)
+        want = (want * 255).astype(np.uint8).astype(np.float32) / 255.0
+        if not (np.array_equal(gt[0], want) and len(scams) == len(cams)
+                and len(scene.points) == MAIN_N):
+            raise AssertionError("the loaded scene differs from the one written")
+        log(f"stages: 1080p PNG decode {timings['png_decode_1080p_ms']:.1f} ms "
+            f"(median of 5); load_colmap_scene + _load_scene of {len(scams)} views "
+            f"{timings['scene_load_ms']:.0f} ms; GT view 0 equals the written render")
+        del gt
+
+        blend_cuda.blend_forward.launches = 0
+        blend_cuda.blend_backward.launches = 0
+        t0 = time.perf_counter()
+        hist = stages_cli.main(["train-gs", *common, "--iterations", str(STAGE_GS_ITERS),
+                                "--capacity", str(TRAIN_CAPACITY)])
+        timings["train_gs_s"] = time.perf_counter() - t0
+        if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
+            raise AssertionError(f"train-gs: a non-finite loss or an overflow: {hist}")
+        t0 = time.perf_counter()
+        stages_cli.main(["render", *common])
+        torch.cuda.synchronize()
+        timings["render_command_s"] = time.perf_counter() - t0
+        # train-gs's model, checked against the render command's PNG once
+        # the commands' launches are read
+        live = gauss_lib.activate(stages_cli.load_live_gaussians(
+            os.path.join(out, "gs.ply"), device=DEV))
+        log(f"stages: train-gs {timings['train_gs_s']:.1f} s ({STAGE_GS_ITERS} iterations, "
+            f"scene load and create_from_pcd included), render command "
+            f"{timings['render_command_s']:.1f} s for {len(scams)} views")
+
+        gauss_lib.save_ply(gauss_lib.params_from_numpy(raw, device="cpu"),
+                           os.path.join(out, "gs.ply"))
+        for method in SUGAR_METHODS:
+            t0 = time.perf_counter()
+            hist = stages_cli.main([
+                "train-sugar", *common, "-r", method, "--start-iteration", str(SUGAR_FROM),
+                "--iterations", str(SUGAR_TO), "--capacity", str(TRAIN_CAPACITY)])
+            timings[f"train_sugar_{method}_s"] = time.perf_counter() - t0
+            first, last = hist[0], hist[-1]
+            log(f"stages: train-sugar -r {method}: {timings[f'train_sugar_{method}_s']:.1f} s; "
+                + "; ".join(f"it {h['iter']} [{h['phase']}] loss {h['loss']:.4f} psnr "
+                            f"{h['psnr']:.2f} n {h['n_active']}" for h in hist)
+                + f"; PSNR margin {SUGAR_PSNR_MARGIN} dB")
+            if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
+                raise AssertionError(f"train-sugar {method}: a non-finite loss or an overflow")
+            if not last["psnr"] >= first["psnr"] - SUGAR_PSNR_MARGIN:
+                raise AssertionError(f"train-sugar {method}: PSNR fell past the margin")
+            keep = first["n_active"] / MAIN_N
+            if not (first["iter"] == 9000 and PRUNE_KEEP[0] <= keep <= PRUNE_KEEP[1]):
+                raise AssertionError(f"train-sugar {method}: the prune kept {keep:.3f}")
+            back = gauss_lib.load_ply(os.path.join(out, "sugar.ply"), device="cpu")
+            if back.capacity != last["n_active"] or not torch.isfinite(back.means3d).all():
+                raise AssertionError(f"train-sugar {method}: sugar.ply does not load back")
+        torch.cuda.synchronize()
+        launches = {"blend_forward": blend_cuda.blend_forward.launches,
+                    "blend_backward": blend_cuda.blend_backward.launches}
+        log(f"stages path launches {launches}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"the stages path did not launch {name}")
+
+        with torch.inference_mode():
+            img = np.clip(render(*live, scams[0], srcfg).image.cpu().numpy(), 0, 1)
+        got, mode = image_io.read_image(os.path.join(out, "renders", "train_00000.png"))
+        if not (mode == "RGB" and np.array_equal(got, (img.transpose(1, 2, 0) * 255).astype(np.uint8))):
+            raise AssertionError("render: the PNG differs from the render it came from")
+        timings["render_view_ms"] = host_ms(lambda: viewer.render_png(live, scams[0], srcfg), 3)
+        del live
+        log(f"stages: render + PNG of one view {timings['render_view_ms']:.1f} ms (host "
+            "clock, median of 3); renders/train_00000.png decodes to the render")
+        gt0 = torch.from_numpy(np.asarray(scene.train_cameras[0].image(), np.float32))
+        timings.update(stages_timings(os.path.join(out, "gs.ply"), scene, gt0.to(DEV)))
+    return launches, timings
+
+
+def stages_timings(gs_path, scene, gt0):
+    """compute_knn at 1M and one SuGaR step per phase and method, part by
+    part (CUDA events, median of 5 after a warm-up), on the 1M model and
+    view 0; then B1 and B2 on a dn_consistency depth render's inputs."""
+    cam = scene.train_cameras[0].camera
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+    params = gauss_lib.load_ply(gs_path, capacity=TRAIN_CAPACITY, device=DEV)
+    knn_runs = [timed(lambda: sugar_trainer.compute_knn(params), DEV)[0] for _ in range(3)]
+    knn_idx = sugar_trainer.compute_knn(params)
+    log(f"compute_knn at {MAIN_N} live of {TRAIN_CAPACITY}, k 16: "
+        f"{', '.join(f'{t:.1f}' for t in knn_runs)} ms (CUDA events, three calls)")
+    opt = opt_lib.make_gs_optimizer(scene.spatial_extent)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    steps = {}
+    for method in SUGAR_METHODS:
+        cfg = sugar_trainer.SugarTrainConfig(method=method, spatial_extent=scene.spatial_extent)
+        for phase in (("photo", "entropy", "sdf") if method == "density" else ("sdf",)):
+            runs = []
+            for _ in range(6):
+                t = Timer()
+                t.mark("start")
+                sugar_trainer.train_step(params, opt_state, cam, gt0, knn_idx, opt, rcfg, cfg,
+                                         3, phase, generator=gen, mark=t.mark)
+                runs.append(t.parts())
+            runs = runs[1:]
+            parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+            parts["step"] = statistics.median(sum(r.values()) for r in runs)
+            label = f"{method}/{phase}" if phase == "sdf" else phase
+            steps[label] = parts
+            log(f"SuGaR step {label} at {MAIN_W}x{MAIN_H}: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in parts.items()) + " ms (median of 5)")
+    hold = hold_depth_render(params, cam, rcfg)
+    return {"knn_ms": knn_runs, "sugar_step_ms": steps, **hold}
+
+
+def hold_depth_render(params, cam, rcfg):
+    """B1 and B2 against their plain versions on the blend inputs of the
+    depth render of a dn_consistency step (colours are depths of ~3-4), B2
+    with the cotangent the loss gives it: through depth / acc and acc = 1 -
+    t_final, every covered pixel's transmittance row is nonzero."""
+    means, scales, quats, opac, _sh = (t.detach() for t in gauss_lib.activate(params))
+    depth_colors, normals = sugar_lib.depth_normal_colors(means, scales, quats, cam)
+    no_sh = torch.zeros_like(means[:, None])
+    proj = preprocess(means, scales, quats, opac, no_sh, cam, rcfg,
+                      colors_precomp=depth_colors)
+    fields = pack_fields(proj)
+    binned = bin_gaussians(proj.rect, proj.depths, proj.valid, rcfg)
+    out_d = blend_cuda.blend_forward(fields, binned, rcfg).requires_grad_(True)
+    with torch.no_grad():
+        normal_img = render(means, scales, quats, opac, no_sh, cam, rcfg,
+                            colors_precomp=normals).image
+    acc = 1.0 - out_d[3]
+    depth_map = out_d[0] / torch.clamp(acc, min=1e-6)
+    normal_map = normal_img / torch.clamp(acc, min=1e-6)[None]
+    loss = sugar_lib.dn_consistency_loss(depth_map, normal_map, acc, cam, rcfg)
+    (g_out,) = torch.autograd.grad(loss, out_d)
+    out_d = out_d.detach()
+    label = "a dn_consistency depth render's inputs"
+    nz = int((g_out[3] != 0).sum())
+    colours = fields[binned.inst_gauss.long(), 6]
+    log(f"{label}: instance colours in [{float(colours.min()):.3f}, "
+        f"{float(colours.max()):.3f}], {nz} pixels with a nonzero transmittance cotangent")
+    if nz == 0:
+        raise AssertionError("the depth render gave B2 no transmittance cotangent")
+    with torch.inference_mode():
+        err_f = compare(label, fields, binned, rcfg)
+        err_b, held = compare_backward_float64(label, fields, binned, rcfg, g_out.contiguous())
+    return {"depth_render_max_abs_err": {"blend_forward": err_f, "blend_backward": err_b},
+            "depth_render_b2_against_float64": held}
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -891,10 +1140,9 @@ def main():
             request_ms.append((time.perf_counter() - t0) * 1e3)
             if status != 200:
                 raise AssertionError(f"/render status {status}")
-            w, h = struct.unpack(">II", body[16:24])
-            if (w, h) != (MAIN_W, MAIN_H):
-                raise AssertionError(f"PNG is {w}x{h}")
-            img = decode_png(body)
+            img, mode = image_io.decode_png(body)
+            if (mode, img.shape) != ("RGB", (MAIN_H, MAIN_W, 3)):
+                raise AssertionError(f"the PNG is {mode} {img.shape}")
             if img.std() < 1.0:
                 raise AssertionError("rendered image is constant")
         status, body = get(base, "/state")
@@ -1010,6 +1258,12 @@ def main():
     probe_records = probe_timings(probe_err, bench_times, bench_launches)
     bench_profiles()
 
+    # 8. the stages path: a scene on disk through stages_cli
+    stage_launches, stage_times = phase_stages(raw, model)
+    log(json.dumps({"stages": stage_times}))
+    for name, err in stage_times["depth_render_max_abs_err"].items():
+        max_err[name] = max(max_err[name], err)
+
     def record(name, line, b, sb, times, plain):
         return {
             "name": name,
@@ -1022,6 +1276,7 @@ def main():
                 "serving": serve_counts[name],
                 "training": launches[name],
                 "bench": bench_launches[name],
+                "stages": stage_launches[name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs
@@ -1050,6 +1305,7 @@ def main():
         record("blend_backward", 411, b_b, s_b, (ms_b, ms_bs), (plain_ms_b, plain_ms_bs)),
     ] + probe_records
     records[1]["reduction"] = reduction
+    records[1]["depth_render"] = stage_times["depth_render_b2_against_float64"]
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

@@ -1,12 +1,14 @@
-"""Builds the CUDA sources under ``csrc/`` into shared libraries with a plain
-C interface, at first use, loads them with ctypes, and calls their C
-launchers on PyTorch's current stream.
+"""Builds the sources under ``csrc/`` into shared libraries with a plain C
+interface, at first use, loads them with ctypes, and calls the CUDA
+sources' C launchers on PyTorch's current stream.
 
-Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, where the
-hash covers the source, every header ``csrc/*.cuh`` and the compiler flags,
-so an edited source or header is rebuilt and an unchanged one is reused.
-``build_all`` starts one ``nvcc`` per source at once and waits for all of
-them. Importing this module needs neither ``nvcc`` nor a GPU; building
+Each ``csrc/<name>.cu`` (a CUDA source, built by ``nvcc``) or
+``csrc/<name>.cpp`` (host code, built by ``g++``) becomes
+``_build/lib<name>-<hash>.so``, where the hash covers the source, the
+compiler flags and, for a CUDA source, every header ``csrc/*.cuh``, so an
+edited source or header is rebuilt and an unchanged one is reused.
+``build_all`` starts one compiler per source at once and waits for all of
+them. Importing this module needs neither compiler nor a GPU; building
 and launching do.
 """
 
@@ -30,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -46,22 +49,42 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
 
 
+def source_path(name: str) -> Path:
+    """csrc/<name>.cu, or csrc/<name>.cpp where there is no CUDA source."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    src = source_path(name)
+    digest = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        digest.update(" ".join(GXX_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(nvcc: str, name: str):
-    """Start nvcc for csrc/<name>.cu into a temporary file; returns
-    (process, temporary path, final path)."""
+def _compiler(src: Path) -> list:
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    return [gxx, *GXX_FLAGS]
+
+
+def _start(name: str):
+    """Start the compiler for csrc/<name>.cu or .cpp into a temporary file;
+    returns (process, temporary path, final path)."""
     lib = library_path(name)
+    src = source_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [*_compiler(src), "-o", tmp, str(src)]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -69,14 +92,13 @@ def _start(nvcc: str, name: str):
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that is not built yet, all nvcc processes
-    started together. Returns {name: compiler output} for those compiled;
+    """Compile every named source that is not built yet, all compiler
+    processes started together. Returns {name: compiler output} for those compiled;
     raises RuntimeError naming the source that failed."""
     names = [n for n in names if not library_path(n).exists()]
     if not names:
         return {}
-    nvcc = nvcc_path()
-    started = {name: _start(nvcc, name) for name in names}
+    started = {name: _start(name) for name in names}
     logs: Dict[str, str] = {}
     failed = []
     for name, (proc, tmp, lib) in started.items():
@@ -84,16 +106,18 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
         logs[name] = out
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            failed.append(
+                f"{source_path(name).name} (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+        raise RuntimeError("build failed: " + "\n".join(failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, built first if needed."""
+    """The shared library of csrc/<name>.cu or .cpp, built first if
+    needed."""
     with _lock:
         if name not in _loaded:
             build_all([name])

@@ -15,6 +15,14 @@ import numpy as np
 import torch
 
 
+def fov_to_focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
     """4x4 world->view (getWorld2View2, graphics_utils.py:52-63),
     COLUMN-vector convention; R is stored transposed as in COLMAP loaders."""

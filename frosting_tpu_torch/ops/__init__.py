@@ -1,2 +1,2 @@
 """Math kernels in plain PyTorch: quaternions, spherical harmonics,
-covariance and EWA projection."""
+covariance and EWA projection, SSIM, exact KNN."""

@@ -81,21 +81,23 @@ def instance_boxes_torch(fields: torch.Tensor) -> torch.Tensor:
 
 
 class _Chunk(NamedTuple):
-    """One step of the walk over every tile's run: [T, K] per slot, [T, P, K]
-    per (pixel, instance) pair, [T, P, 1] per pixel."""
+    """One step of the walk over the tile runs that reach it: [T', K] per
+    slot, [T', P, K] per (pixel, instance) pair, [T', P, 1] per pixel, for
+    the T' tiles listed in ``tiles``."""
 
-    in_run: torch.Tensor  # [T, K] slot lies inside the tile's run
-    idx: torch.Tensor  # [T, K] index into inst_gauss of the slot (0 outside)
-    f: torch.Tensor  # [T, K, 9] the slots' fields (sentinel row outside)
-    dx: torch.Tensor  # [T, P, K] mean2d.x - pixel x
-    dy: torch.Tensor  # [T, P, K]
-    power: torch.Tensor  # [T, P, K]
-    raw: torch.Tensor  # [T, P, K] op * exp(power), before the clamp
-    alpha: torch.Tensor  # [T, P, K]
-    t_before: torch.Tensor  # [T, P, K] transmittance before the pair
-    m: torch.Tensor  # [T, P, K] the instance contributes to the pixel
-    incl: torch.Tensor  # [T, P, K] inclusive cumprod of 1 - alpha
-    t_all: torch.Tensor  # [T, P, 1] carried transmittance before the chunk
+    tiles: torch.Tensor  # [T'] the tiles whose run reaches this chunk
+    in_run: torch.Tensor  # [T', K] slot lies inside the tile's run
+    idx: torch.Tensor  # [T', K] index into inst_gauss of the slot (0 outside)
+    f: torch.Tensor  # [T', K, 9] the slots' fields (sentinel row outside)
+    dx: torch.Tensor  # [T', P, K] mean2d.x - pixel x
+    dy: torch.Tensor  # [T', P, K]
+    power: torch.Tensor  # [T', P, K]
+    raw: torch.Tensor  # [T', P, K] op * exp(power), before the clamp
+    alpha: torch.Tensor  # [T', P, K]
+    t_before: torch.Tensor  # [T', P, K] transmittance before the pair
+    m: torch.Tensor  # [T', P, K] the instance contributes to the pixel
+    incl: torch.Tensor  # [T', P, K] inclusive cumprod of 1 - alpha
+    t_all: torch.Tensor  # [T', P, 1] carried transmittance before the chunk
 
 
 def _tile_pixels(cfg: RasterConfig, dev):
@@ -108,7 +110,9 @@ def _tile_pixels(cfg: RasterConfig, dev):
 
 
 def _walk(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
-    """Yield a _Chunk for every ``cfg.chunk`` instances of the tile runs."""
+    """Yield a _Chunk for every ``cfg.chunk`` instances of the tile runs,
+    holding only the tiles whose run reaches that far (a tile past the end
+    of its run adds nothing to any sum)."""
     dev = fields.device
     n_tiles, p, k = cfg.n_tiles, cfg.tile_pixels, cfg.chunk
     sentinel = fields.shape[0] - 1  # the all-zero row of pack_fields
@@ -122,15 +126,16 @@ def _walk(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
     slot = torch.arange(k, device=dev)
     max_len = int(lens.max()) if n_tiles else 0
     for c0 in range(0, max_len, k):
-        in_run = (c0 + slot)[None, :] < lens[:, None]  # [T, K]
-        idx = torch.where(in_run, starts[:, None] + c0 + slot, 0)
+        tiles = torch.nonzero(lens > c0)[:, 0]
+        in_run = (c0 + slot)[None, :] < lens[tiles, None]  # [T', K]
+        idx = torch.where(in_run, starts[tiles, None] + c0 + slot, 0)
         gid = torch.where(in_run, inst_gauss[idx], sentinel)
-        f = fields[gid]  # [T, K, W]
-        mx, my = f[:, None, :, 0], f[:, None, :, 1]  # [T, 1, K]
+        f = fields[gid]  # [T', K, W]
+        mx, my = f[:, None, :, 0], f[:, None, :, 1]  # [T', 1, K]
         ca, cb, cc = f[:, None, :, 2], f[:, None, :, 3], f[:, None, :, 4]
         op = f[:, None, :, 5]
-        dx = mx - px  # [T, P, K]
-        dy = my - py
+        dx = mx - px[tiles]  # [T', P, K]
+        dy = my - py[tiles]
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         raw = op * torch.exp(power)
         alpha = torch.clamp(raw, max=ALPHA_CLAMP)
@@ -138,11 +143,12 @@ def _walk(fields: torch.Tensor, binned: Binned, cfg: RasterConfig):
         one_minus = 1.0 - alpha
         incl = torch.cumprod(one_minus, dim=2)
         excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], 2)
-        t_before = t_all * excl
+        t_run = t_all[tiles]
+        t_before = t_run * excl
         m = (t_before * one_minus >= TRANSMITTANCE_EPS) & in_run[:, None, :]
-        yield _Chunk(in_run, idx, f, dx, dy, power, raw, alpha, t_before, m,
-                     incl, t_all)
-        t_all = t_all * incl[..., -1:]
+        yield _Chunk(tiles, in_run, idx, f, dx, dy, power, raw, alpha, t_before,
+                     m, incl, t_run)
+        t_all = t_all.index_put((tiles,), t_run * incl[..., -1:])
 
 
 def _to_tiles(img: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
@@ -164,12 +170,13 @@ def blend_forward_torch(
     color = fields.new_zeros((n_tiles, p, 3))
     t_mask = fields.new_ones((n_tiles, p, 1))
     for c in _walk(fields, binned, cfg):
-        w = torch.where(c.m, c.alpha * c.t_before, 0.0)  # [T, P, K]
-        color = color + torch.bmm(w, c.f[..., 6:9])
+        w = torch.where(c.m, c.alpha * c.t_before, 0.0)  # [T', P, K]
+        color = color.index_put((c.tiles,), color[c.tiles] + torch.bmm(w, c.f[..., 6:9]))
         # transmittance after each contributing Gaussian; it only falls
         # along the walk, so the minimum is the last one
         v = torch.where(c.m, c.t_all * c.incl, 1.0)
-        t_mask = torch.minimum(t_mask, torch.amin(v, dim=2, keepdim=True))
+        t_mask = t_mask.index_put((c.tiles,), torch.minimum(
+            t_mask[c.tiles], torch.amin(v, dim=2, keepdim=True)))
     out = torch.cat([color, t_mask], dim=2)  # [T, P, 4]
     out = out.reshape(cfg.tiles_y, cfg.tiles_x, cfg.tile_h, cfg.tile_w, 4)
     out = out.permute(4, 0, 2, 1, 3).reshape(
@@ -207,22 +214,23 @@ def blend_backward_torch(
     g_tfinal = g_tmask * fwd[..., 3:4]  # [T, P, 1]
     gc_pre = torch.zeros_like(gc_total)
     for c in _walk(fields, binned, cfg):
-        col = c.f[:, None, :, 6:9]  # [T, 1, K, 3]
-        u = (g_color[..., 0:1] * col[..., 0] + g_color[..., 1:2] * col[..., 1]
-             + g_color[..., 2:3] * col[..., 2])  # [T, P, K]
+        gcol = g_color[c.tiles]  # [T', P, 3]
+        col = c.f[:, None, :, 6:9]  # [T', 1, K, 3]
+        u = (gcol[..., 0:1] * col[..., 0] + gcol[..., 1:2] * col[..., 1]
+             + gcol[..., 2:3] * col[..., 2])  # [T', P, K]
         w = torch.where(c.m, c.alpha * c.t_before, 0.0)
         cum = torch.cumsum(u * w, dim=2)
-        g_suffix = gc_total - (gc_pre + cum)
+        g_suffix = gc_total[c.tiles] - (gc_pre[c.tiles] + cum)
         inv = 1.0 / (1.0 - c.alpha)
         dalpha = torch.where(
-            c.m, u * c.t_before - g_suffix * inv - g_tfinal * inv, 0.0
+            c.m, u * c.t_before - g_suffix * inv - g_tfinal[c.tiles] * inv, 0.0
         )
         live = (c.power <= 0.0) & (c.raw >= ALPHA_CUTOFF) & (c.raw < ALPHA_CLAMP)
         dp = torch.where(live, dalpha * c.alpha, 0.0)
         rows = _rows(c.f, _direct_sums(dp, c.dx, c.dy),
-                     torch.bmm(w.transpose(1, 2), g_color))  # [T, K, 9]
+                     torch.bmm(w.transpose(1, 2), gcol))  # [T', K, 9]
         rows_out[c.idx[c.in_run]] = rows[c.in_run]
-        gc_pre = gc_pre + cum[..., -1:]
+        gc_pre[c.tiles] += cum[..., -1:]
     return rows_out
 
 
@@ -317,8 +325,8 @@ def blend_work_torch(
     stopped = torch.zeros((n_tiles, p), dtype=torch.bool, device=fields.device)
     for c in _walk(fields, binned, cfg):
         # m is true on a prefix of each pixel's run and false from its stop
-        work += (c.m & (c.alpha > 0.0) if live else c.m).sum(dim=2)
-        stopped |= (~c.m & c.in_run[:, None, :]).any(dim=2)
+        work[c.tiles] += (c.m & (c.alpha > 0.0) if live else c.m).sum(dim=2)
+        stopped[c.tiles] |= (~c.m & c.in_run[:, None, :]).any(dim=2)
     work += stopped.long()
     x, y = _tile_pixels(cfg, fields.device)
     inside = (x < cfg.width) & (y < cfg.height)

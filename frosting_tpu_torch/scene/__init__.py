@@ -1,1 +1,2 @@
-"""Gaussian parameter store, PLY checkpoints and synthetic scenes."""
+"""Gaussian parameter store, PLY checkpoints, COLMAP / NeRF-synthetic
+loaders and synthetic scenes."""

@@ -7,6 +7,8 @@ numpy with the same seeds, so both packages get identical scenes.
 from __future__ import annotations
 
 import math
+import os
+import struct
 from typing import List, Tuple
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 from frosting_tpu_torch.cameras import Camera, look_at_camera
 from frosting_tpu_torch.ops import sh as sh_ops
 from frosting_tpu_torch.raster import RasterConfig, render
+from frosting_tpu_torch.utils.png import encode_png
 
 
 def gaussian_blob_scene(
@@ -165,3 +168,78 @@ def adversarial_blend_inputs(seed: int = 0, device="cuda", deep: int = 12_000):
         overflow=torch.tensor(False, device=device),
     )
     return torch.as_tensor(f, dtype=torch.float32, device=device), binned, cfg
+
+
+def _quat_wxyz(R: np.ndarray) -> np.ndarray:
+    """Unit quaternion (w, x, y, z) of a rotation matrix (Shepperd's
+    method: the branch with the largest denominator)."""
+    t = np.trace(R)
+    if t > 0:
+        s = 2.0 * math.sqrt(1.0 + t)
+        q = [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+             (R[1, 0] - R[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * math.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
+        q = [0.0, 0.0, 0.0, 0.0]
+        q[0] = (R[k, j] - R[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (R[j, i] + R[i, j]) / s
+        q[1 + k] = (R[k, i] + R[i, k]) / s
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)
+
+
+def write_colmap_scene(
+    path: str, gaussians, cameras: List[Camera], cfg: RasterConfig, bg=(0.0, 0.0, 0.0)
+) -> List[str]:
+    """A COLMAP scene on disk from a Gaussian model (activated (means,
+    scales, quats, opacities, sh)) and cameras, in the layout the loaders
+    read (tests/test_cli.py::make_colmap_scene is the JAX package's
+    template): images/img_XXX.png rendered at cfg's size, one PINHOLE
+    camera, the poses in sparse/0/images.bin and the model's means, coloured
+    by their SH DC term, as sparse/0/points3D.bin. Returns the image
+    paths."""
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    sparse = os.path.join(path, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    names = [f"img_{i:03d}.png" for i in range(len(cameras))]
+    imgs = render_gt_images(gaussians, cameras, cfg, bg)
+    for name, img in zip(names, imgs):
+        rgb = (np.clip(img.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
+        with open(os.path.join(path, "images", name), "wb") as f:
+            f.write(encode_png(rgb))
+
+    tan_x = float(cameras[0].tan_fov_x)
+    tan_y = float(cameras[0].tan_fov_y)
+    w, h = cfg.width, cfg.height
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, w, h))  # camera 1, PINHOLE
+        f.write(struct.pack("<4d", w / (2 * tan_x), h / (2 * tan_y), w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for i, (cam, name) in enumerate(zip(cameras, names)):
+            wv = cam.world_view.detach().cpu().numpy().astype(np.float64).T
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<4d", *_quat_wxyz(wv[:3, :3])))
+            f.write(struct.pack("<3d", *wv[:3, 3]))
+            f.write(struct.pack("<i", 1))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))  # no 2D points
+
+    means = gaussians[0].detach().cpu().numpy().astype(np.float64)
+    dc = torch.as_tensor(gaussians[4][:, 0]).detach().cpu()
+    rgb = (torch.clamp(sh_ops.sh_to_rgb(dc), 0.0, 1.0) * 255).numpy().astype(np.uint8)
+    rec = np.zeros(len(means), np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+        ("track_len", "<u8"),
+    ], align=False))
+    rec["id"] = np.arange(len(means))
+    rec["xyz"] = means
+    rec["rgb"] = rgb
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(means)))
+        f.write(rec.tobytes())
+    return [os.path.join(path, "images", n) for n in names]

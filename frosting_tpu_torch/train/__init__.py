@@ -1,2 +1,2 @@
 """Trainers: the stage-1 3DGS trainer, its Adam, densification and
-checkpoints."""
+checkpoints, and the stage-2 SuGaR trainer."""

@@ -1,1 +1,1 @@
-"""PLY and PNG I/O and the HTTP viewer."""
+"""PLY, PNG and JPEG I/O, PIL's default resize and the HTTP viewer."""

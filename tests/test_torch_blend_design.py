@@ -139,9 +139,10 @@ def test_no_pair_of_the_walk_above_the_cutoff_lies_outside_its_box(size):
     for c in _walk(fields, binned, cfg):
         hit = (c.power <= 0.0) & (c.raw >= ALPHA_CUTOFF) & c.in_run[:, None, :]
         b = instance_boxes_torch(c.f.reshape(-1, 9)).reshape(*c.f.shape[:2], 4)
-        b = b[:, None]  # [T, 1, K, 4]
-        outside = ((px < b[..., 0]) | (py < b[..., 1])
-                   | (px > b[..., 2]) | (py > b[..., 3]))
+        b = b[:, None]  # [T', 1, K, 4]
+        tx, ty = px[c.tiles], py[c.tiles]
+        outside = ((tx < b[..., 0]) | (ty < b[..., 1])
+                   | (tx > b[..., 2]) | (ty > b[..., 3]))
         assert not (hit & outside).any()
         hits += int(hit.sum())
     # the boxes leave pairs out: some were evaluated that need not be

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card against their plain PyTorch versions: the
 blend kernels, the render's gradients through them (bitwise reproducible
 over two calls) and one train step; the probes P1-P4 of the bench
-entry points. Marked `gpu`: every test skips without a CUDA device. This
+entry points; the stage-2 path: the exact KNN against its CPU result, B2
+on a depth render's inputs and one SuGaR step. Marked `gpu`: every test skips without a CUDA device. This
 file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -15,6 +16,8 @@ from frosting_tpu_torch.bench import perf_scan_variants as ps
 from frosting_tpu_torch.bench import perf_vpu_dtype as pv
 from frosting_tpu_torch.bench.common import bench_scene, graph_ms
 from frosting_tpu_torch.cameras import look_at_camera
+from frosting_tpu_torch.models import sugar as sugar_lib
+from frosting_tpu_torch.ops import knn as knn_lib
 from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.raster import blend_cuda
 from frosting_tpu_torch.raster.binning import bin_gaussians
@@ -24,12 +27,14 @@ from frosting_tpu_torch.raster.blend_torch import (
 )
 from frosting_tpu_torch.raster.preprocess import pack_fields, preprocess
 from frosting_tpu_torch.raster.render import BlendFunction, render
+from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import (
     adversarial_blend_inputs,
     gaussian_blob_scene,
 )
-from frosting_tpu_torch.train import gs_trainer
+from frosting_tpu_torch.train import gs_trainer, sugar_trainer
+from frosting_tpu_torch.train import optimizer as opt_lib
 
 pytestmark = pytest.mark.gpu
 
@@ -345,3 +350,114 @@ def test_probe_launches_replay_in_a_cuda_graph(cuda):
     assert torch.equal(out, pv.chain_fma_torch(x))
     floor = graph_ms(lambda: ps.empty_launch(cuda), iters=10, repeats=2)
     assert 0 < floor < ms
+
+
+def test_knn_on_the_card_equals_the_cpu(cuda):
+    """The same float32 operations on both devices: equal distances, equal
+    indices where the k-th and (k+1)-th distances do not tie."""
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.normal(0, 0.02, (15_000, 3)),
+                          rng.uniform(-2, 2, (5_000, 3))]).astype(np.float32)
+    valid = rng.uniform(size=len(pts)) > 0.1
+    cpu = knn_lib.knn(torch.from_numpy(pts), 16, torch.from_numpy(valid))
+    gpu = knn_lib.knn(torch.from_numpy(pts).to(cuda), 16, torch.from_numpy(valid).to(cuda))
+    live = torch.from_numpy(np.nonzero(valid)[0])
+    d_cpu, d_gpu = cpu[1][live], gpu[1].cpu()[live]
+    assert torch.equal(d_cpu, d_gpu)
+    distinct = (d_cpu[:, 1:] != d_cpu[:, :-1]).all(1)
+    assert torch.equal(cpu[0][live][distinct], gpu[0].cpu()[live][distinct])
+    assert bool(torch.from_numpy(valid)[gpu[0].cpu()[live]].all())
+
+
+def _sugar_setup(cuda, n=3_000, size=(160, 120)):
+    rcfg = RasterConfig(width=size[0], height=size[1], max_instances=1 << 20)
+    arrays = bench_scene(n, 3, -0.7, 0.7, 0.01, 0.05)
+    means, scales, quats, opac, sh = arrays
+    params = gauss_lib.params_from_numpy({
+        "means3d": means, "sh_dc": sh[:, :1], "sh_rest": sh[:, 1:],
+        "scales_log": np.log(scales), "quats_raw": quats,
+        "opacities_raw": np.log(opac / (1 - opac)), "mask": np.ones(n, np.float32),
+    }, device=cuda)
+    cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=cuda)
+    return params, cam, rcfg
+
+
+def test_backward_kernel_on_a_depth_render(cuda):
+    """B2 on a dn_consistency depth render's inputs (colours 2-4, a
+    transmittance cotangent through depth / acc at every covered pixel):
+    against the plain version in float64 it is at most twice as far off
+    as the plain float32 version (chip_smoke.py compare_backward_float64:
+    the suffix trick's float32 rounding grows with the colours), and it
+    holds chip_smoke.py's limits against the plain float32 version."""
+    params, cam, rcfg = _sugar_setup(cuda)
+    means, scales, quats, opac, _sh = (t.detach() for t in gauss_lib.activate(params))
+    depth_colors, normals = sugar_lib.depth_normal_colors(means, scales, quats, cam)
+    no_sh = torch.zeros_like(means[:, None])
+    proj = preprocess(means, scales, quats, opac, no_sh, cam, rcfg, colors_precomp=depth_colors)
+    fields = pack_fields(proj)
+    binned = bin_gaussians(proj.rect, proj.depths, proj.valid, rcfg)
+    out = blend_cuda.blend_forward(fields, binned, rcfg).requires_grad_(True)
+    normal_img = render(means, scales, quats, opac, no_sh, cam, rcfg, colors_precomp=normals).image
+    acc = 1.0 - out[3]
+    loss = sugar_lib.dn_consistency_loss(
+        out[0] / acc.clamp_min(1e-6), normal_img / acc.clamp_min(1e-6)[None], acc, cam, rcfg)
+    (g,) = torch.autograd.grad(loss, out)
+    out = out.detach()
+    assert int((g[3] != 0).sum()) > 0
+    rows = blend_cuda.blend_backward(fields, binned, rcfg, out, g)
+    plain = blend_backward_torch(fields, binned, rcfg, out, g)
+    f64 = fields.double()
+    ref = blend_backward_torch(f64, binned, rcfg, blend_forward_torch(f64, binned, rcfg), g.double())
+    scale = ref.abs().amax(0).clamp_min(1e-30)
+
+    def off(x):
+        err = (x.double() - ref).abs() / scale
+        return int((err > 1e-5 + 1e-5 * ref.abs() / scale).sum()), err.max().item()
+
+    (k_off, k_max), (p_off, p_max) = off(rows), off(plain)
+    assert k_off <= max(2 * p_off, 1e-5 * rows.numel(), 18), (k_off, p_off)
+    assert k_max <= 2 * max(p_max, 1e-5), (k_max, p_max)
+    # and against the plain float32 walk, chip_smoke.py's limits
+    pscale = plain.abs().amax(0).clamp_min(1e-30)
+    err = (rows - plain).abs() / pscale
+    o_off = int((err > 1e-5 + 1e-5 * plain.abs() / pscale).sum())
+    assert o_off <= 4.2e-4 * rows.numel() and err.max().item() <= 2.8e-4, (o_off, err.max())
+
+
+def test_one_sugar_step_on_the_card(cuda):
+    """A dn_consistency step in the sdf phase (B1 and B2 on the colour,
+    depth and normal renders), with the same draws on the card and on the
+    CPU: the same loss to 1e-4, and the same updated parameters under the
+    rule of tests/test_torch_sugar_step.py (a first Adam step is lr *
+    sign(g), so an element whose gradient is round-off may move +-lr
+    apart: all but 1% of each group agree to 1e-5 + 1e-4 relative, none by
+    more than two learning rates)."""
+    params, cam, rcfg = _sugar_setup(cuda)
+    cfg = sugar_trainer.SugarTrainConfig(method="dn_consistency", n_sdf_samples=4096)
+    gt = torch.rand((3, rcfg.height, rcfg.width), generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    draws = (torch.rand(4096, generator=gen), torch.randn((4096, 3), generator=gen))
+    results = []
+    for dev in ("cpu", cuda):
+        p = gauss_lib.GaussianParams(**{
+            k: v.detach().to(dev, copy=True) for k, v in vars(params).items()})
+        opt = opt_lib.make_gs_optimizer(3.0)
+        state = opt.init(p)
+        knn_idx = sugar_trainer.compute_knn(p, cfg.knn_k)
+        launches = blend_cuda.blend_backward.launches
+        m = sugar_trainer.train_step(
+            p, state, cam.to(dev), gt.to(dev), knn_idx, opt, rcfg, cfg, 3, "sdf",
+            draws=tuple(t.to(dev) for t in draws))
+        if dev != "cpu":
+            assert blend_cuda.blend_backward.launches == launches + 3
+        results.append((float(m["loss"]), p))
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = results
+    assert np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    lrs = {"means3d": 1.6e-4 * 3.0, "sh_dc": 2.5e-3, "sh_rest": 2.5e-3 / 20,
+           "opacities_raw": 0.05, "scales_log": 5e-3, "quats_raw": 1e-3}
+    for g in opt_lib.GROUPS:
+        got, want = getattr(p_gpu, g).cpu(), getattr(p_cpu, g)
+        err = (got - want).abs()
+        off = err > 1e-5 + 1e-4 * want.abs()
+        assert off.float().mean().item() <= 0.01, (g, int(off.sum()))
+        assert err.max().item() <= 2 * lrs[g] + 1e-6, (g, err.max().item())

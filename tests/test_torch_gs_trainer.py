@@ -8,6 +8,7 @@ import json
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from frosting_tpu.raster import RasterConfig as JaxConfig
@@ -25,21 +26,26 @@ EXTENT = 3.3
 RASTER = dict(width=64, height=64, chunk=32, max_instances=8192)
 
 
-def _setup(n_cams=6):
-    """JAX ground truth views of gaussian_blob_scene(400) and a 400-point
-    init from it, shared by both packages."""
+@pytest.fixture(scope="module")
+def views():
+    """Ground truth views of the JAX package's gaussian_blob_scene(400) and
+    a 400-point init from it, shared by both packages and the module's
+    tests. The views are inputs of both trainers alike, so the port renders
+    them (no JAX render compile)."""
     jcfg = JaxConfig(backend="jax", bwd_sort_bf16=False, **RASTER)
     gt = jax_synthetic.gaussian_blob_scene(n=400, seed=0)
-    jcams = jax_synthetic.camera_ring(n_cams=n_cams, radius=3.0)
-    gt_imgs = jax_synthetic.render_gt_images(gt, jcams, jcfg, jnp.zeros(3))
-    pts, cols = jax_synthetic.degraded_init(gt, keep=1.0, jitter=0.03)
+    jcams = jax_synthetic.camera_ring(n_cams=6, radius=3.0)
     tcams = [camera_from_numpy(
         {f.name: np.asarray(getattr(c, f.name)) for f in dataclasses.fields(c)},
         device="cpu") for c in jcams]
+    gt_imgs = synthetic.render_gt_images(
+        tuple(torch.from_numpy(np.array(a)) for a in gt), tcams,
+        RasterConfig(**RASTER), np.zeros(3, np.float32))
+    pts, cols = jax_synthetic.degraded_init(gt, keep=1.0, jitter=0.03)
     return jcfg, jcams, tcams, gt_imgs, pts, cols
 
 
-def test_train_steps_match_jax():
+def test_train_steps_match_jax(views):
     """Three steps from the same init, on the same views in the same order.
 
     Tolerance: the first step's Adam update is lr * g / (|g| + 1e-15), the
@@ -48,7 +54,7 @@ def test_train_steps_match_jax():
     +-lr in one package and -+lr in the other. All but 1% of each field's
     elements agree to 1e-5 + 1e-4 relative; none is further apart than two
     learning rates per step taken."""
-    jcfg, jcams, tcams, gt_imgs, pts, cols = _setup()
+    jcfg, jcams, tcams, gt_imgs, pts, cols = views
     cfg = gs_trainer.GSTrainConfig(capacity=512)
     jstate, tx = jax_trainer.init_state(pts, cols, EXTENT, jax_trainer.GSTrainConfig(capacity=512))
     state, opt = gs_trainer.init_state(pts, cols, EXTENT, cfg, device="cpu")
@@ -77,11 +83,11 @@ def test_train_steps_match_jax():
         assert {g: int(c) for g, c in state.opt_state.count.items()} == count
 
 
-def test_logged_overflow_is_the_log_steps_own_flag_as_in_jax():
+def test_logged_overflow_is_the_log_steps_own_flag_as_in_jax(views):
     """A capacity between the views' instance counts (637-717 at the init):
     the 2nd and 3rd steps' views overflow, the 4th's does not. Each log
     step's overflow is that step's own flag in both packages."""
-    jcfg, jcams, tcams, gt_imgs, pts, cols = _setup()
+    jcfg, jcams, tcams, gt_imgs, pts, cols = views
     raster = dict(RASTER, max_instances=704)
     cfg = dict(capacity=512, iterations=6, log_every=2, densify_from=100)
     _, jhist = jax_trainer.train(

@@ -1,0 +1,209 @@
+"""The port's PIL-free image I/O (frosting_tpu_torch.utils.image) against
+PIL itself (Pillow 12.1.0 on libjpeg-turbo): PNG and baseline-JPEG
+decoding and the default resize, bit for bit, on images made in the test;
+and the cases it refuses.
+
+The JPEG files are PIL's own (libjpeg-turbo's encoder); the PNGs are
+written here with every row filter (None, Sub, Up, Average, Paeth) and
+every supported colour type, as PIL's encoder picks its filters itself."""
+
+import io
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from frosting_tpu_torch.utils import image as image_io
+
+
+def _smooth(rng, h, w, c):
+    """Smooth colour waves plus noise: JPEG blocks with real AC content."""
+    y, x = np.mgrid[0:h, 0:w]
+    a = np.stack([127 + 100 * np.sin(x / 7.0 + k) * np.cos(y / 5.0 - k)
+                  for k in range(c)], -1)
+    return np.clip(a + rng.normal(0, 20, (h, w, c)), 0, 255).astype(np.uint8)
+
+
+def _filter_row(kind, row, prev, bpp):
+    """PNG filter `kind` of one row (uint8 arrays), as an encoder applies it."""
+    r, p = row.astype(np.int64), prev.astype(np.int64)
+    a = np.concatenate([np.zeros(bpp, np.int64), r[:-bpp]])
+    c = np.concatenate([np.zeros(bpp, np.int64), p[:-bpp]])
+    if kind == 0:
+        pred = np.zeros_like(r)
+    elif kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = p
+    elif kind == 3:
+        pred = (a + p) >> 1
+    else:
+        est = a + p - c
+        pa, pb, pc = np.abs(est - a), np.abs(est - p), np.abs(est - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, p, c))
+    return ((r - pred) % 256).astype(np.uint8)
+
+
+def _chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def _png(samples, ctype, depth, palette=None, interlace=0):
+    """PNG bytes of samples [H, W, C] (uint8, or uint16 for 16 bit), rows
+    filtered with types 0-4 in turn."""
+    h, w, c = samples.shape
+    raw = samples.astype(">u2").view(np.uint8) if depth == 16 else samples
+    rows = raw.reshape(h, -1)
+    bpp = c * depth // 8
+    out, prev = [], np.zeros(rows.shape[1], np.uint8)
+    for y in range(h):
+        kind = y % 5
+        out.append(bytes([kind]) + _filter_row(kind, rows[y], prev, bpp).tobytes())
+        prev = rows[y]
+    body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        body += _chunk(b"PLTE", palette.tobytes())
+    body += _chunk(b"IDAT", zlib.compress(b"".join(out)))
+    return b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b"")
+
+
+def _pil(data):
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im), im.mode
+
+
+def _assert_like_pil(data):
+    got, mode = image_io.decode(data)
+    want, want_mode = _pil(data)
+    assert mode == want_mode
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+# (colour type, bit depth, channels)
+PNG_CASES = {
+    "L8": (0, 8, 1), "RGB8": (2, 8, 3), "P8": (3, 8, 1), "RGBA8": (6, 8, 4),
+    "I16": (0, 16, 1), "RGB16": (2, 16, 3), "RGBA16": (6, 16, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(PNG_CASES))
+def test_png_every_filter_matches_pil(case):
+    """Palette images come back as indices ("P"), 16-bit grey as uint16
+    ("I;16"), 16-bit colour as the high byte of each sample, as in PIL."""
+    ctype, depth, c = PNG_CASES[case]
+    rng = np.random.default_rng(depth + ctype)
+    h, w = 23, 37
+    top = 65536 if depth == 16 else (40 if ctype == 3 else 256)
+    samples = rng.integers(0, top, (h, w, c)).astype(np.uint16 if depth == 16 else np.uint8)
+    palette = rng.integers(0, 256, (40, 3)).astype(np.uint8) if ctype == 3 else None
+    got = _assert_like_pil(_png(samples, ctype, depth, palette))
+    assert got.shape[:2] == (h, w)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "P"])
+def test_png_from_pil_matches_pil(mode):
+    arr = _smooth(np.random.default_rng(1), 30, 41, {"L": 1, "RGBA": 4}.get(mode, 3))
+    img = Image.fromarray(arr[..., 0] if mode == "L" else arr)
+    if mode == "P":
+        img = img.quantize(32)
+    buf = io.BytesIO()
+    img.save(buf, "PNG", optimize=True)
+    _assert_like_pil(buf.getvalue())
+
+
+@pytest.mark.parametrize(
+    "mode,subsampling,size,restart",
+    [
+        ("RGB", 0, (48, 64), 0), ("RGB", 1, (45, 61), 0), ("RGB", 2, (45, 61), 0),
+        ("RGB", 2, (17, 9), 0), ("RGB", 2, (3, 2), 0), ("RGB", 1, (16, 16), 0),
+        ("RGB", 2, (37, 53), 1), ("RGB", 0, (37, 53), 3), ("RGB", 1, (40, 33), 2),
+        ("L", 0, (45, 61), 0), ("L", 0, (37, 53), 2),
+    ],
+    ids=lambda v: str(v).replace(" ", ""),
+)
+def test_jpeg_matches_pil_bitwise(mode, subsampling, size, restart):
+    """libjpeg's islow IDCT, fancy upsampling and fixed-point colour
+    conversion, exactly; restart markers every `restart` MCUs."""
+    rng = np.random.default_rng(size[0] * 100 + size[1])
+    arr = _smooth(rng, *size, 1 if mode == "L" else 3)
+    img = Image.fromarray(arr[..., 0] if mode == "L" else arr)
+    for quality in (40, 95):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=quality, subsampling=subsampling,
+                 restart_marker_blocks=restart)
+        data = buf.getvalue()
+        assert (b"\xff\xd0" in data) == (restart > 0)
+        _assert_like_pil(data)
+
+
+def _jpeg(mode="RGB", **kw):
+    buf = io.BytesIO()
+    img = Image.fromarray(_smooth(np.random.default_rng(2), 24, 24, 3))
+    img.convert(mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _patched_sof(data, marker=None, precision=None):
+    i = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    if marker is not None:
+        out[i + 1] = marker
+    if precision is not None:
+        out[i + 4] = precision
+    return bytes(out)
+
+
+@pytest.mark.parametrize(
+    "make,error",
+    [
+        (lambda: _jpeg(progressive=True), NotImplementedError),
+        (lambda: _patched_sof(_jpeg(), marker=0xC9), NotImplementedError),  # arithmetic
+        (lambda: _patched_sof(_jpeg(), precision=12), NotImplementedError),
+        (lambda: _jpeg(mode="CMYK"), NotImplementedError),
+        (lambda: _png(np.zeros((4, 4, 2), np.uint8), 4, 8), ValueError),  # LA
+        (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=1), NotImplementedError),
+        (lambda: _png(np.zeros((4, 1, 1), np.uint8), 0, 1), NotImplementedError),
+        (lambda: b"GIF89a", ValueError),
+    ],
+    ids=["progressive", "arithmetic", "12-bit", "cmyk", "LA", "adam7", "1-bit", "gif"],
+)
+def test_refused_files_raise(make, error):
+    with pytest.raises(error):
+        image_io.decode(make())
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "P"])
+@pytest.mark.parametrize("size", [(32, 24), (31, 23), (20, 45), (100, 70)],
+                         ids=["half", "odd", "mixed", "up"])
+def test_resize_matches_pil(mode, size):
+    """Image.resize(size): BICUBIC in fixed point (RGBA premultiplied),
+    NEAREST for palette images."""
+    rng = np.random.default_rng(7)
+    arr = _smooth(rng, 48, 64, 4)
+    img = Image.fromarray(arr[..., 0] if mode == "L" else arr[..., :3] if mode == "RGB" else arr)
+    if mode == "P":
+        img = Image.fromarray(arr[..., :3]).quantize(64)
+    src = np.asarray(img)
+    want = np.asarray(img.resize(size))
+    got = image_io.resize(src, mode, size)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_resize_of_16_bit_grey_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        image_io.resize(np.zeros((8, 8), np.uint16), "I;16", (4, 4))
+
+
+def test_image_size_reads_the_header(tmp_path):
+    for name, data in (("a.png", _png(np.zeros((7, 11, 3), np.uint8), 2, 8)),
+                       ("b.jpg", _jpeg(quality=80))):
+        path = tmp_path / name
+        path.write_bytes(data)
+        with Image.open(path) as im:
+            assert image_io.image_size(str(path)) == im.size

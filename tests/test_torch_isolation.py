@@ -1,9 +1,10 @@
 """The port imports nothing of JAX or of the JAX package.
 
-Scans every module of frosting_tpu_torch/, chip_smoke.py and blend_ab.py for imports of
-jax, jaxlib or frosting_tpu (the exact top-level name: frosting_tpu is a
-prefix of frosting_tpu_torch), and imports the package in a fresh process
-where importing jax fails.
+Scans every module of frosting_tpu_torch/, chip_smoke.py, blend_ab.py and
+scan_ab.py for imports of jax, jaxlib or frosting_tpu (the exact top-level
+name: frosting_tpu is a prefix of frosting_tpu_torch), and of PIL and
+optax, which the GPU machines the port runs on do not have; and imports
+the package in a fresh process where importing jax, PIL or optax fails.
 """
 
 import ast
@@ -14,9 +15,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "frosting_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "frosting_tpu", "PIL", "optax"}
 SOURCES = sorted((ROOT / "frosting_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "blend_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "blend_ab.py", ROOT / "scan_ab.py"]
 
 
 def _imported_roots(path):
@@ -38,9 +39,9 @@ def test_scan_sees_the_forbidden_names(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(
         "import jax.numpy as jnp\nfrom frosting_tpu.raster import render\n"
-        "from frosting_tpu_torch.raster import render as r2\n"
+        "from frosting_tpu_torch.raster import render as r2\nfrom PIL import Image\n"
     )
-    assert _imported_roots(probe) & FORBIDDEN == {"jax", "frosting_tpu"}
+    assert _imported_roots(probe) & FORBIDDEN == {"jax", "frosting_tpu", "PIL"}
 
 
 def test_package_imports_without_jax():
@@ -48,13 +49,18 @@ def test_package_imports_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['PIL'] = None\n"
+        "sys.modules['optax'] = None\n"
         "import frosting_tpu_torch.raster.render, frosting_tpu_torch.utils.viewer\n"
         "import frosting_tpu_torch.scene.synthetic, frosting_tpu_torch.scene.gaussians\n"
         "import frosting_tpu_torch.train.gs_trainer, frosting_tpu_torch.ops.ssim\n"
         "import frosting_tpu_torch.train.checkpoint, frosting_tpu_torch.utils.profiling\n"
         "import frosting_tpu_torch.bench.__main__, frosting_tpu_torch.bench.bench_1080p\n"
         "import frosting_tpu_torch.bench.perf_vpu_dtype, frosting_tpu_torch.bench.perf_scan_variants\n"
-        "assert 'optax' not in sys.modules\n"
+        "import frosting_tpu_torch.stages_cli, frosting_tpu_torch.scene.dataset\n"
+        "import frosting_tpu_torch.utils.image, frosting_tpu_torch.train.sugar_trainer\n"
+        "from frosting_tpu_torch import stages_cli\n"
+        "assert stages_cli.build_parser().parse_args(['train-sugar', '-s', 'x']).device == 'cuda'\n"
         "assert not any(m == 'frosting_tpu' or m.startswith('frosting_tpu.')\n"
         "               for m in sys.modules)\n"
     )
