@@ -59,8 +59,16 @@ Phases (any failure raises and exits nonzero):
      phase and method part by part are timed, and B1 and B2 are held
      against their plain versions on a dn_consistency depth render's
      inputs, with the transmittance cotangent that depth / acc gives.
+     Stage 3 on the same scene (phase_extract): 1M Gaussians on the unit
+     sphere as sugar.ply, stages_cli extract-shell --both-poly at the
+     defaults (B1 once per view; both meshes within their vertex budgets,
+     finite, median radius in a band; the parts' times and peak device
+     memory logged), a second run at --low-poly (its own process) whose
+     shell.ply equals the first's shell_lowpoly.ply byte for byte, and
+     --method centers / marching within their bands.
 The four main paths (4, 5, 7 and 8) reset the kernels' launch counts just
-before and read them just after. The line before the last is the JSON
+before and read them just after; stage 3's extract-shell is read on its
+own. The line before the last is the JSON
 kernels record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -68,7 +76,9 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -173,6 +183,28 @@ SUGAR_METHODS = ("density", "sdf", "dn_consistency")
 # after the prune and the last (9010) after ten sdf steps, on another view
 SUGAR_PSNR_MARGIN = 3.0  # dB
 PRUNE_KEEP = (0.55, 0.80)  # opacities U(0.3, 0.95): ~69% are >= 0.5
+# Stage 3: a known answer, MAIN_N Gaussians of scale 0.01 and opacity 0.9
+# whose means lie on the unit sphere, as sugar.ply; extract-shell at its
+# defaults (surface method, level 0.3, 21 samples, k 16, auto Poisson
+# resolution up to 1024, targets 1M and 200k, visibility culling 0.001).
+# The level-0.3 crossings lie ~2.7 scales (0.027) outside the sphere of
+# means and are then snapped onto those points, so both meshes' median
+# vertex radius lies in SHELL_RADIUS. QEM stops at its target, and after it
+# only the vertices of faces it collapsed or of culled components go, so a
+# mesh keeps at least SHELL_KEEP of its target.
+SHELL_SCALE, SHELL_OPACITY = 0.01, 0.9
+SHELL_TARGETS = (1_000_000, 200_000)
+SHELL_RADIUS = (0.97, 1.05)
+SHELL_KEEP = 0.9
+# The ablation methods on the same model. centers: Poisson on the means
+# themselves (radius 1), the mesh then snapped onto them, at 512^3 (at the
+# auto 1024^3 the host QEM of its ~8M-vertex mesh takes ~4.5 min on the
+# card's machine); marching at 256^3 over the cameras' box (+/- 3.85,
+# cells of 0.030) takes the density's level set 2.7 scales outside the
+# sphere: radius ~1.027 (1.0276 measured before culling).
+CENTERS_POISSON = 512
+CENTERS_RADIUS = (0.97, 1.05)
+MARCHING_RADIUS = (0.99, 1.06)
 DEV = "cuda"
 
 
@@ -889,7 +921,8 @@ def phase_stages(raw, model):
     """The stages main path: a COLMAP scene of the 1M model written to disk
     and driven through stages_cli in process (train-gs, render, train-sugar
     for each method), then its timings and the depth-render check of B1
-    and B2. Returns (launches per kernel of the commands, timings)."""
+    and B2, then stage 3 (phase_extract). Returns (launches per kernel of
+    the stage 1-2 commands, of the first extract-shell, timings)."""
     cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
                         max_instances=STAGE_MAX_INSTANCES)
@@ -980,7 +1013,125 @@ def phase_stages(raw, model):
             "clock, median of 3); renders/train_00000.png decodes to the render")
         gt0 = torch.from_numpy(np.asarray(scene.train_cameras[0].image(), np.float32))
         timings.update(stages_timings(os.path.join(out, "gs.ply"), scene, gt0.to(DEV)))
-    return launches, timings
+        del scene, gt0
+        torch.cuda.empty_cache()
+        extract_launches, timings["extract_shell"] = phase_extract(
+            scene_dir, out, common, len(scams))
+    return launches, extract_launches, timings
+
+
+def sphere_raw(n, seed=0):
+    """Raw parameters of n Gaussians of scale SHELL_SCALE and opacity
+    SHELL_OPACITY whose means lie on the unit sphere (seeded numpy)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    sh = np.zeros((n, 16, 3), np.float32)
+    return raw_params((d.astype(np.float32), np.full((n, 3), SHELL_SCALE, np.float32), quats,
+                       np.full((n,), SHELL_OPACITY, np.float32), sh))
+
+
+def median_radius(path):
+    v, f = stages_cli.load_mesh(path)
+    if not (np.isfinite(v).all() and len(f) and f.min() >= 0 and f.max() < len(v)):
+        raise AssertionError(f"{path}: non-finite vertices or bad faces")
+    return len(v), len(f), float(np.median(np.linalg.norm(v, axis=1)))
+
+
+def phase_extract(scene_dir, out, common, n_views):
+    """Stage 3 on the stages path's scene: the known-answer sphere as
+    sugar.ply, then extract-shell --both-poly at full width in process (B1
+    launched once per view, its parts' times, peak device memory, both
+    meshes' counts and radii). A second run of the command, at --low-poly
+    in a process of its own, must write a shell.ply equal byte for byte to
+    the first run's shell_lowpoly.ply (the same Poisson mesh decimated to
+    the same budget); it starts first, and the first run starts once the
+    second has finished its device work and entered its ~5 min of host
+    QEM, so that the two share no device time. Then --method centers at
+    Poisson 512^3 and --method marching at 256^3. Returns (launches of the
+    first command, results)."""
+    gauss_lib.save_ply(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device="cpu"),
+                       os.path.join(out, "sugar.ply"))
+    out_b = out + "_again"
+    os.makedirs(out_b)
+    shutil.copy(os.path.join(out, "sugar.ply"), out_b)
+    shell_ply = os.path.join(out, "shell.ply")
+    low_ply = os.path.join(out, "shell_lowpoly.ply")
+    results = {}
+
+    def run(label, extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = stages_cli.main(["extract-shell", *common, *extra])
+        torch.cuda.synchronize()
+        res["command_s"] = time.perf_counter() - t0
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        results[label] = res
+        log(f"extract-shell {' '.join(extra)}: {res['command_s']:.1f} s, peak device memory "
+            f"{res['peak_gib']:.2f} GiB, Poisson {res['poisson_resolutions']}; parts (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+        return res
+
+    common_b = [out_b if a == out else a for a in common]
+    again = subprocess.Popen(
+        [sys.executable, "-m", "frosting_tpu_torch.stages_cli", "extract-shell", *common_b,
+         "--low-poly"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        for line in again.stdout:
+            log(f"  [second run] {line.rstrip()}")
+            if line.startswith("[shell/all] poisson res"):
+                break
+        else:
+            raise AssertionError(f"the second extract-shell ended early ({again.wait()})")
+        log(f"second run's device work done in {time.perf_counter() - t0:.1f} s")
+        blend_cuda.blend_forward.launches = 0
+        blend_cuda.blend_backward.launches = 0
+        run("surface", ["--both-poly"])
+        torch.cuda.synchronize()
+        launches = {"blend_forward": blend_cuda.blend_forward.launches,
+                    "blend_backward": blend_cuda.blend_backward.launches}
+        log(f"extract-shell launches {launches}")
+        if launches != {"blend_forward": n_views, "blend_backward": 0}:
+            raise AssertionError(f"extract-shell should launch B1 once per view: {launches}")
+        for line in again.stdout:
+            log(f"  [second run] {line.rstrip()}")
+        if again.wait() != 0:
+            raise AssertionError(f"the second extract-shell failed ({again.returncode})")
+        results["again_low_poly"] = {"command_s": time.perf_counter() - t0}
+    finally:
+        if again.poll() is None:
+            again.kill()
+            again.wait()
+    for path, target in zip((shell_ply, low_ply), SHELL_TARGETS):
+        nv, nf, r = median_radius(path)
+        log(f"{os.path.basename(path)}: {nv} vertices, {nf} faces, median radius {r:.5f} "
+            f"(band {SHELL_RADIUS}, {SHELL_KEEP * target:.0f} to {target} vertices)")
+        if not (SHELL_KEEP * target <= nv <= target and SHELL_RADIUS[0] <= r <= SHELL_RADIUS[1]):
+            raise AssertionError(f"{path}: {nv} vertices, median radius {r}")
+        results["surface"][os.path.basename(path)] = {"verts": nv, "faces": nf, "median_r": r}
+    with open(low_ply, "rb") as f, open(os.path.join(out_b, "shell.ply"), "rb") as g:
+        same = f.read() == g.read()
+    log(f"second run (--low-poly): shell.ply {'equals' if same else 'DIFFERS from'} the first "
+        "run's shell_lowpoly.ply byte for byte")
+    if not same:
+        raise AssertionError("two extractions of the same model differ")
+    for method, band, extra in (
+            ("centers", CENTERS_RADIUS, ["--poisson-resolution", str(CENTERS_POISSON)]),
+            ("marching", MARCHING_RADIUS, ["--marching-resolution", "256"])):
+        run(method, ["--method", method, *extra])
+        nv, nf, r = median_radius(shell_ply)
+        log(f"--method {method}: {nv} vertices, {nf} faces, median radius {r:.5f} "
+            f"(band {band})")
+        if not (0 < nv <= SHELL_TARGETS[0] and band[0] <= r <= band[1]):
+            raise AssertionError(f"--method {method}: {nv} vertices, median radius {r}")
+        results[method]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
+    return launches, results
 
 
 def stages_timings(gs_path, scene, gt0):
@@ -1259,7 +1410,7 @@ def main():
     bench_profiles()
 
     # 8. the stages path: a scene on disk through stages_cli
-    stage_launches, stage_times = phase_stages(raw, model)
+    stage_launches, extract_launches, stage_times = phase_stages(raw, model)
     log(json.dumps({"stages": stage_times}))
     for name, err in stage_times["depth_render_max_abs_err"].items():
         max_err[name] = max(max_err[name], err)
@@ -1277,6 +1428,7 @@ def main():
                 "training": launches[name],
                 "bench": bench_launches[name],
                 "stages": stage_launches[name],
+                "extract_shell": extract_launches[name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs

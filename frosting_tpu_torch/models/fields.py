@@ -6,7 +6,9 @@ sum of the K tracked neighbour Gaussians' un-normalised opacities
   d(x) = sum_j s_j exp(-1/2 || diag(1/sc_j) R_j^T (x - mu_j) ||^2),
 and the SDF is the beta-scaled log transform
   sdf(x) = beta(x) (sqrt(-2 log d(x)) - sqrt(-2 log level)).
-Batched gather-and-reduce over [M, K] neighbour sets, in plain PyTorch.
+Batched gather-and-reduce over [M, K] neighbour sets, in plain PyTorch;
+``field_values_blocked`` bounds the working set, and ``density_and_grad``
+gives shell extraction the density with its gradient in closed form.
 """
 
 from __future__ import annotations
@@ -26,17 +28,11 @@ class FieldValues(NamedTuple):
     sdf: torch.Tensor  # [M]
 
 
-def neighbor_opacities(
-    x: torch.Tensor,  # [M, 3]
-    knn_idx: torch.Tensor,  # [M, K]
-    centers: torch.Tensor,  # [N, 3]
-    strengths: torch.Tensor,  # [N]
-    scales: torch.Tensor,  # [N, 3] activated
-    quats: torch.Tensor,  # [N, 4] unit
-    density_factor: float = 1.0,
-) -> torch.Tensor:
-    """[M, K] per-neighbour un-normalised opacity contributions
-    (sugar_model.py:1305-1309), in the JAX version's component order."""
+def _warp(x, knn_idx, centers, scales, quats):
+    """Per-neighbour [M, K] terms of the Gaussian exponent: (w, u) with
+    w_a = (R^T (x - mu))_a / s_a, the warped offset, and u_a = R[:, a] / s_a
+    (three [M, K] components each), so that the exponent's derivative is
+    d(||w||^2)/dx = 2 sum_a w_a u_a."""
 
     def g(t):  # [N] -> [M, K]
         return t[knn_idx]
@@ -62,8 +58,55 @@ def neighbor_opacities(
     w0 = (r00 * sh0 + r10 * sh1 + r20 * sh2) * inv0
     w1 = (r01 * sh0 + r11 * sh1 + r21 * sh2) * inv1
     w2 = (r02 * sh0 + r12 * sh1 + r22 * sh2) * inv2
+    u = ((r00 * inv0, r10 * inv0, r20 * inv0),
+         (r01 * inv1, r11 * inv1, r21 * inv1),
+         (r02 * inv2, r12 * inv2, r22 * inv2))
+    return (w0, w1, w2), u
+
+
+def neighbor_opacities(
+    x: torch.Tensor,  # [M, 3]
+    knn_idx: torch.Tensor,  # [M, K]
+    centers: torch.Tensor,  # [N, 3]
+    strengths: torch.Tensor,  # [N]
+    scales: torch.Tensor,  # [N, 3] activated
+    quats: torch.Tensor,  # [N, 4] unit
+    density_factor: float = 1.0,
+) -> torch.Tensor:
+    """[M, K] per-neighbour un-normalised opacity contributions
+    (sugar_model.py:1305-1309), in the JAX version's component order."""
+    (w0, w1, w2), _u = _warp(x, knn_idx, centers, scales, quats)
     maha = torch.clamp(w0 * w0 + w1 * w1 + w2 * w2, 0.0, 1e8)
-    return density_factor * g(strengths) * torch.exp(-0.5 * maha)
+    return density_factor * strengths[knn_idx] * torch.exp(-0.5 * maha)
+
+
+def density_and_grad(
+    x: torch.Tensor,  # [M, 3]
+    knn_idx: torch.Tensor,  # [M, K]
+    centers: torch.Tensor,
+    strengths: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    neighbor_valid: Optional[torch.Tensor] = None,  # [M, K] bool
+):
+    """(density [M], d density / dx [M, 3]) with density_factor 1: what the
+    JAX extraction takes with ``jax.value_and_grad`` of
+    ``field_values(...).density`` (shell.py:159-185, 235-254), in closed
+    form: d/dx s exp(-||w||^2 / 2) = -s exp(-||w||^2 / 2) sum_a w_a u_a
+    (``_warp``), zero where the clamp of ||w||^2 at 1e8 holds. The density
+    is field_values' bitwise. Neighbours flagged False in
+    ``neighbor_valid`` (a radius-bounded KNN's filler) contribute 0."""
+    (w0, w1, w2), u = _warp(x, knn_idx, centers, scales, quats)
+    raw = w0 * w0 + w1 * w1 + w2 * w2
+    nb = strengths[knn_idx] * torch.exp(-0.5 * torch.clamp(raw, 0.0, 1e8))
+    if neighbor_valid is not None:
+        nb = torch.where(neighbor_valid, nb, 0.0)
+    coef = torch.where(raw <= 1e8, nb, 0.0)
+    grad = torch.stack([
+        -torch.sum(coef * (w0 * u[0][c] + w1 * u[1][c] + w2 * u[2][c]), dim=-1)
+        for c in range(3)
+    ], dim=-1)
+    return torch.sum(nb, dim=-1), grad
 
 
 def field_values(
@@ -117,6 +160,30 @@ def field_values(
         beta=beta,
         sdf=sdf,
     )
+
+
+def field_values_blocked(
+    x: torch.Tensor,
+    knn_idx: torch.Tensor,
+    centers: torch.Tensor,
+    strengths: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    block: int = 1 << 19,
+    **kw,
+) -> FieldValues:
+    """field_values over blocks of `block` query points, concatenated:
+    bounds the [block, K] intermediates at multi-million-point budgets
+    (``frosting_tpu/models/fields.py:136``; no jit cache is needed here)."""
+    m = x.shape[0]
+    if m <= block:
+        return field_values(x, knn_idx, centers, strengths, scales, quats, **kw)
+    outs = [
+        field_values(x[i:i + block], knn_idx[i:i + block], centers, strengths,
+                     scales, quats, **kw)
+        for i in range(0, m, block)
+    ]
+    return FieldValues(*(torch.cat(t) for t in zip(*outs)))
 
 
 def sample_points_in_gaussians(

@@ -1,14 +1,15 @@
 """Per-stage command line of the port: stage 1 (3DGS), stage 2 (coarse
-SuGaR) and rendering of a scene on disk.
+SuGaR), stage 3 (shell extraction) and rendering of a scene on disk.
 
-Counterpart of the ``train-gs``, ``train-sugar`` and ``render`` commands of
-``frosting_tpu/stages_cli.py``. Each command reads and writes artifacts in
--o/--output (gs.ply, sugar.ply, renders/), so the stages run and resume
-independently:
+Counterpart of the ``train-gs``, ``train-sugar``, ``extract-shell`` and
+``render`` commands of ``frosting_tpu/stages_cli.py``. Each command reads
+and writes artifacts in -o/--output (gs.ply, sugar.ply, shell.ply,
+shell_lowpoly.ply, renders/), so the stages run and resume independently:
 
-  python -m frosting_tpu_torch.stages_cli train-gs    -s SCENE -o OUT [...]
-  python -m frosting_tpu_torch.stages_cli train-sugar -s SCENE -o OUT -r density|sdf|dn_consistency
-  python -m frosting_tpu_torch.stages_cli render      -s SCENE -o OUT
+  python -m frosting_tpu_torch.stages_cli train-gs      -s SCENE -o OUT [...]
+  python -m frosting_tpu_torch.stages_cli train-sugar   -s SCENE -o OUT -r density|sdf|dn_consistency
+  python -m frosting_tpu_torch.stages_cli extract-shell -s SCENE -o OUT [--both-poly] [--method surface|centers|marching]
+  python -m frosting_tpu_torch.stages_cli render        -s SCENE -o OUT
 
 SCENE is a COLMAP scene (sparse/0 or sparse, and images/). The commands run
 on the CUDA card by default; ``--device cpu`` runs them on the CPU, through
@@ -103,6 +104,66 @@ def cmd_train_sugar(args):
     return history
 
 
+def _mesh_path(out):
+    return os.path.join(out, "shell.ply")
+
+
+def save_mesh(path, verts, faces):
+    from frosting_tpu_torch.utils import ply as ply_io
+
+    v = np.asarray(verts, np.float32)
+    ply_io.write_ply(
+        path, {"x": v[:, 0], "y": v[:, 1], "z": v[:, 2]},
+        faces=np.asarray(faces, np.int32),
+    )
+
+
+def load_mesh(path):
+    """(verts [V, 3] float32, faces [F, 3] int64) of a PLY mesh."""
+    from frosting_tpu_torch.utils import ply as ply_io
+
+    d = ply_io.read_ply(path)
+    v = np.stack([d["vertex"]["x"], d["vertex"]["y"], d["vertex"]["z"]], 1).astype(np.float32)
+    f = np.asarray(d["face"]["vertex_indices"], np.int64)
+    return v, f
+
+
+def cmd_extract_shell(args):
+    """Extract shell.ply (and shell_lowpoly.ply with --both-poly) from
+    sugar.ply; returns the extraction's aux (timings_ms per part, vertex
+    and face counts)."""
+    from frosting_tpu_torch.extract.shell import ShellConfig, extract_shell
+    from frosting_tpu_torch.scene.gaussians import activate
+
+    _scene, cams, _gt, rcfg = _load_scene(args)
+    means, scales, quats, opac, _sh = activate(load_live_gaussians(
+        os.path.join(args.output, "sugar.ply"), device=args.device))
+    cfg = ShellConfig(
+        surface_level=args.surface_level,
+        poisson_resolution=args.poisson_resolution,
+        target_vertices=200_000 if args.low_poly else 1_000_000,
+        target_vertices_low=200_000 if args.both_poly else None,
+        cleaning_quantile=args.cleaning_quantile,
+        fg_split=args.fg_split,
+        method=args.method,
+        marching_resolution=args.marching_resolution,
+    )
+    with torch.no_grad():
+        verts, faces, aux = extract_shell(
+            means.detach(), scales.detach(), quats.detach(), opac.detach(), cams, rcfg, cfg,
+            verbose=True)
+    save_mesh(_mesh_path(args.output), verts, faces)
+    print("wrote", _mesh_path(args.output), len(verts), "verts")
+    out = {"timings_ms": aux["timings_ms"], "verts": len(verts), "faces": len(faces),
+           "poisson_resolutions": aux.get("poisson_resolutions")}
+    if "low_poly" in aux:
+        lp = os.path.join(args.output, "shell_lowpoly.ply")
+        save_mesh(lp, *aux["low_poly"])
+        print("wrote", lp, len(aux["low_poly"][0]), "verts")
+        out["verts_low"] = len(aux["low_poly"][0])
+    return out
+
+
 def load_live_gaussians(path, device="cuda"):
     """The live rows of a PLY checkpoint as GaussianParams."""
     from frosting_tpu_torch.scene import gaussians as gauss_lib
@@ -164,6 +225,20 @@ def build_parser():
     sp.add_argument("--capacity", type=int, default=1 << 19)
     sp.set_defaults(fn=cmd_train_sugar)
 
+    sp = sub.add_parser("extract-shell")
+    _common(sp)
+    sp.add_argument("--surface-level", type=float, default=0.3)
+    sp.add_argument("--poisson-resolution", type=int, default=0)
+    sp.add_argument("--cleaning-quantile", type=float, default=0.1)
+    sp.add_argument("--low-poly", action="store_true")
+    # BOTH the 1M high-poly and a 200k low-poly mesh from one
+    # reconstruction (shell.ply + shell_lowpoly.ply), coarse_shell.py:105-108
+    sp.add_argument("--both-poly", action="store_true")
+    sp.add_argument("--fg-split", action="store_true")
+    sp.add_argument("--method", default="surface", choices=["surface", "centers", "marching"])
+    sp.add_argument("--marching-resolution", type=int, default=256)
+    sp.set_defaults(fn=cmd_extract_shell)
+
     sp = sub.add_parser("render")
     _common(sp)
     sp.set_defaults(fn=cmd_render)
@@ -172,7 +247,8 @@ def build_parser():
 
 def main(argv=None):
     """Run one command; returns what the command returns (the training
-    commands: their log-step metrics)."""
+    commands: their log-step metrics; extract-shell: its timings and
+    counts)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

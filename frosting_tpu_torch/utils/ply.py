@@ -78,6 +78,12 @@ def read_ply(path: str) -> Dict[str, Dict[str, np.ndarray]]:
             arr = np.frombuffer(body, dt, count=count, offset=offset)
             offset += dt.itemsize * count
             out[name] = {p[0]: np.ascontiguousarray(arr[p[0]]) for p in props}
+        elif len(props) == 1 and _fixed_list(body, offset, count, props[0]) is not None:
+            # one list property whose every row has the same length (a
+            # triangle mesh's faces): one structured read
+            rec = _fixed_list(body, offset, count, props[0])
+            offset += rec.nbytes
+            out[name] = {props[0][0]: np.ascontiguousarray(rec["v"])}
         else:
             # assume homogeneous list sizes (true for triangle meshes)
             cols: Dict[str, list] = {p[0]: [] for p in props}
@@ -106,6 +112,21 @@ def read_ply(path: str) -> Dict[str, Dict[str, np.ndarray]]:
                 else:
                     out[name][k] = np.array(v)
     return out
+
+
+def _fixed_list(body, offset, count, prop):
+    """The rows of an element made of one list property as a structured
+    array of (count, values), if every row holds as many values as the
+    first; else None."""
+    _name, pdt, cnt_dt = prop
+    if count == 0 or offset + np.dtype(cnt_dt).itemsize > len(body):
+        return None
+    k = int(np.frombuffer(body, cnt_dt, 1, offset)[0])
+    dt = np.dtype([("n", cnt_dt), ("v", pdt, (k,))])
+    if offset + dt.itemsize * count > len(body):
+        return None
+    rec = np.frombuffer(body, dt, count=count, offset=offset)
+    return rec if np.all(rec["n"] == k) else None
 
 
 def write_ply(

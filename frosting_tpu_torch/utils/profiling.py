@@ -13,6 +13,7 @@ import contextlib
 import json
 import os
 import time
+from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
@@ -36,6 +37,45 @@ def annotate(name: str):
     """Named sub-region inside a trace."""
     with torch.profiler.record_function(name):
         yield
+
+
+class PartTimes:
+    """Milliseconds per named part, summed over every time the part runs:
+    CUDA events around device parts on a CUDA device, the host clock
+    around host parts (after a synchronise, so no device work is queued)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.ms = defaultdict(float)
+        self._events = []
+
+    @contextlib.contextmanager
+    def device(self, name):
+        if not self.cuda:
+            with self.host(name):
+                yield
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        self._events.append((name, start, end))
+
+    @contextlib.contextmanager
+    def host(self, name):
+        if self.cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        self.ms[name] += (time.perf_counter() - t0) * 1e3
+
+    def result(self) -> dict:
+        if self._events:
+            torch.cuda.synchronize()
+        for name, start, end in self._events:
+            self.ms[name] += start.elapsed_time(end)
+        self._events = []
+        return dict(self.ms)
 
 
 class StepTimer:

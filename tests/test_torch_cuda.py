@@ -2,7 +2,10 @@
 blend kernels, the render's gradients through them (bitwise reproducible
 over two calls) and one train step; the probes P1-P4 of the bench
 entry points; the stage-2 path: the exact KNN against its CPU result, B2
-on a depth render's inputs and one SuGaR step. Marked `gpu`: every test skips without a CUDA device. This
+on a depth render's inputs and one SuGaR step; the stage-3 path: the mesh
+rasterizer, the query KNN, marching tetrahedra, the Poisson solve (its
+indicator bitwise equal over two runs) and a small extract_shell, each on
+the card against the CPU. Marked `gpu`: every test skips without a CUDA device. This
 file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -16,8 +19,11 @@ from frosting_tpu_torch.bench import perf_scan_variants as ps
 from frosting_tpu_torch.bench import perf_vpu_dtype as pv
 from frosting_tpu_torch.bench.common import bench_scene, graph_ms
 from frosting_tpu_torch.cameras import look_at_camera
+from frosting_tpu_torch.extract import marching, poisson
+from frosting_tpu_torch.extract import shell as shell_lib
 from frosting_tpu_torch.models import sugar as sugar_lib
 from frosting_tpu_torch.ops import knn as knn_lib
+from frosting_tpu_torch.ops import mesh_raster
 from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.raster import blend_cuda
 from frosting_tpu_torch.raster.binning import bin_gaussians
@@ -461,3 +467,104 @@ def test_one_sugar_step_on_the_card(cuda):
         off = err > 1e-5 + 1e-4 * want.abs()
         assert off.float().mean().item() <= 0.01, (g, int(off.sum()))
         assert err.max().item() <= 2 * lrs[g] + 1e-6, (g, err.max().item())
+
+
+def _sphere_mesh(n=4000, seed=0):
+    """A closed mesh near the unit sphere: marching tetrahedra of a noisy
+    radial field (on the CPU)."""
+    rng = np.random.default_rng(seed)
+    lin = np.linspace(-1.3, 1.3, 41)
+    g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    field = (1.0 - np.linalg.norm(g, axis=-1) + 0.02 * rng.normal(size=g.shape[:3]))
+    return torch.from_numpy(field.astype(np.float32)), (-1.3,) * 3, (2.6 / 40,) * 3
+
+
+def test_marching_and_mesh_raster_on_the_card_equal_the_cpu(cuda):
+    """marching_tets: faces equal and verts to 1e-12; rasterize_mesh of that
+    mesh at an odd size: pix_to_face equal on all but 0.1% of the pixels,
+    zbuf and bary to 1e-5 where the faces agree."""
+    grid, origin, spacing = _sphere_mesh()
+    v_cpu, f_cpu = marching.marching_tets(grid, 0.0, origin, spacing, max_slab_cubes=40_000)
+    v_gpu, f_gpu = marching.marching_tets(grid.to(cuda), 0.0, origin, spacing,
+                                          max_slab_cubes=40_000)
+    assert torch.equal(f_gpu.cpu(), f_cpu)
+    assert (v_gpu.cpu() - v_cpu).abs().max().item() <= 1e-12
+    cfg = RasterConfig(width=333, height=197, max_instances=1 << 20)
+    frags = []
+    for dev in ("cpu", cuda):
+        cam = look_at_camera(eye=[0.4, -2.2, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=dev)
+        frags.append(mesh_raster.rasterize_mesh(v_cpu.float().to(dev), f_cpu.to(dev), cam, cfg))
+    (c, g) = frags
+    pf_c, pf_g = c.pix_to_face, g.pix_to_face.cpu()
+    assert (pf_c != pf_g).float().mean().item() <= 1e-3
+    both = (pf_c == pf_g) & (pf_c >= 0)
+    assert both.float().mean().item() > 0.2
+    assert (c.zbuf[both] - g.zbuf.cpu()[both]).abs().max().item() <= 1e-5
+    assert (c.bary[both] - g.bary.cpu()[both]).abs().max().item() <= 1e-5
+
+
+def test_poisson_on_the_card_is_bitwise_reproducible(cuda):
+    """Two solves on the card give a bitwise-equal indicator (the splat sums
+    in a fixed order); it agrees with the CPU's to 1e-4 of its largest
+    magnitude, the iso level to 1e-5."""
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(200_000, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = torch.from_numpy((d * 0.8 + 0.005 * rng.normal(size=d.shape)).astype(np.float32))
+    p01, _lo, _hi = poisson.normalise(pts)
+    nrm = torch.from_numpy(d.astype(np.float32))
+    chi_c, iso_c = poisson.poisson_grid(p01, nrm, 128)
+    chi_a, iso_a = poisson.poisson_grid(p01.to(cuda), nrm.to(cuda), 128)
+    chi_b, iso_b = poisson.poisson_grid(p01.to(cuda), nrm.to(cuda), 128)
+    assert torch.equal(chi_a, chi_b) and torch.equal(iso_a, iso_b)
+    assert (chi_a.cpu() - chi_c).abs().max().item() <= 1e-4 * chi_c.abs().max().item()
+    assert abs(float(iso_a) - float(iso_c)) <= 1e-5
+
+
+def test_query_knn_on_the_card_equals_the_cpu(cuda):
+    rng = np.random.default_rng(2)
+    refs = torch.from_numpy(rng.normal(0, 0.3, (30_000, 3)).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(-3, 3, (20_000, 3)).astype(np.float32))
+    for radius in (None, 0.2):
+        cpu = knn_lib.knn_query(q, refs, 16, radius=radius)
+        gpu = knn_lib.knn_query(q.to(cuda), refs.to(cuda), 16, radius=radius)
+        assert torch.equal(gpu[1].cpu(), cpu[1])
+        distinct = (cpu[1][:, 1:] != cpu[1][:, :-1]).all(1)
+        assert torch.equal(gpu[0].cpu()[distinct], cpu[0][distinct])
+
+
+@pytest.mark.parametrize("method", ["surface", "centers", "marching"])
+def test_small_extract_shell_on_the_card(cuda, method):
+    """extract_shell of a 20k-Gaussian sphere from 3 views at 256x192 on the
+    card against the CPU: vertex count within 2%, symmetric Chamfer
+    distance within half a Poisson cell, median radius within 1%; B1
+    launched once per view by the surface method."""
+    from scipy.spatial import cKDTree
+
+    rng = np.random.default_rng(0)
+    n = 20_000
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    quats = np.zeros((n, 4), np.float32)
+    quats[:, 0] = 1.0
+    arrays = (d.astype(np.float32), np.full((n, 3), 0.02, np.float32), quats,
+              np.full((n,), 0.9, np.float32))
+    rcfg = RasterConfig(width=256, height=192, max_instances=1 << 22)
+    cfg = shell_lib.ShellConfig(method=method, poisson_resolution=128, target_vertices=20_000,
+                                marching_resolution=96)
+    meshes = []
+    for dev in ("cpu", cuda):
+        cams = synthetic.camera_ring(n_cams=3, radius=3.5, device=dev)
+        launches = blend_cuda.blend_forward.launches
+        v, f, _aux = shell_lib.extract_shell(
+            *(torch.from_numpy(a).to(dev) for a in arrays), cams, rcfg, cfg)
+        if dev != "cpu" and method == "surface":
+            assert blend_cuda.blend_forward.launches == launches + 3
+        meshes.append(v)
+    (v_c, v_g) = meshes
+    assert np.isfinite(v_g).all() and len(v_c) > 1000
+    assert abs(len(v_g) - len(v_c)) <= 0.02 * len(v_c)
+    chamfer = (cKDTree(v_c).query(v_g)[0].mean() + cKDTree(v_g).query(v_c)[0].mean()) / 2
+    assert chamfer <= 0.5 * 2.6 / 127, chamfer
+    r_c, r_g = (np.median(np.linalg.norm(v, axis=1)) for v in meshes)
+    assert abs(r_g - r_c) <= 0.01 * r_c

@@ -3,8 +3,11 @@
 Scans every module of frosting_tpu_torch/, chip_smoke.py, blend_ab.py and
 scan_ab.py for imports of jax, jaxlib or frosting_tpu (the exact top-level
 name: frosting_tpu is a prefix of frosting_tpu_torch), and of PIL and
-optax, which the GPU machines the port runs on do not have; and imports
-the package in a fresh process where importing jax, PIL or optax fails.
+optax, which the GPU machines the port runs on do not have; imports the
+package in a fresh process where importing jax, PIL or optax fails; and
+checks that the port's host C++ sources (csrc/*.cpp, the QEM decimator
+among them) include only standard headers and are built from the port's
+own csrc/, not from frosting_tpu/native.
 """
 
 import ast
@@ -17,7 +20,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "frosting_tpu", "PIL", "optax"}
 SOURCES = sorted((ROOT / "frosting_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "blend_ab.py", ROOT / "scan_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "blend_ab.py", ROOT / "scan_ab.py", ROOT / "extract_parts.py"]
 
 
 def _imported_roots(path):
@@ -59,9 +62,27 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.bench.perf_vpu_dtype, frosting_tpu_torch.bench.perf_scan_variants\n"
         "import frosting_tpu_torch.stages_cli, frosting_tpu_torch.scene.dataset\n"
         "import frosting_tpu_torch.utils.image, frosting_tpu_torch.train.sugar_trainer\n"
+        "import frosting_tpu_torch.extract.shell, frosting_tpu_torch.extract.meshclean\n"
+        "import frosting_tpu_torch.extract.poisson, frosting_tpu_torch.extract.marching\n"
+        "import frosting_tpu_torch.ops.mesh, frosting_tpu_torch.ops.mesh_raster\n"
         "from frosting_tpu_torch import stages_cli\n"
         "assert stages_cli.build_parser().parse_args(['train-sugar', '-s', 'x']).device == 'cuda'\n"
+        "assert stages_cli.build_parser().parse_args(['extract-shell', '-s', 'x']).device == 'cuda'\n"
         "assert not any(m == 'frosting_tpu' or m.startswith('frosting_tpu.')\n"
         "               for m in sys.modules)\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_host_sources_are_the_ports_own():
+    from frosting_tpu_torch import _build
+
+    sources = sorted((ROOT / "frosting_tpu_torch" / "csrc").glob("*.cpp"))
+    assert {p.stem for p in sources} >= {"qem", "image_decode"}
+    for path in sources:
+        includes = [line.split()[1] for line in path.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert all(i.startswith("<") for i in includes), (path.name, includes)
+        assert "frosting_tpu/" not in path.read_text()
+        assert _build.source_path(path.stem) == path
+        assert _build.library_path(path.stem).parent == ROOT / "frosting_tpu_torch" / "_build"
