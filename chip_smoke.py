@@ -65,10 +65,30 @@ Phases (any failure raises and exits nonzero):
      finite, median radius in a band; the parts' times and peak device
      memory logged), a second run at --low-poly (its own process) whose
      shell.ply equals the first's shell_lowpoly.ply byte for byte, and
-     --method centers / marching within their bands.
+     --method centers (Poisson 256^3) / marching within their bands (in a
+     process of their own, started when the first run enters its host
+     QEM).
+     Stages 4-5 (phase_frosting): the sphere, coloured by position, rendered
+     by B1 from the 8 stage views as a second COLMAP scene; stages_cli
+     train-frosting at its defaults (2M Gaussians) on the surface method's
+     1M-vertex shell.ply, 100 iterations: B1 and B2 launched exactly once
+     per iteration, no step overflowing, frosting.npz loading back to the
+     refined model bitwise and frosting.ply loading, every value finite,
+     the centres' median radius between the sheets', outer offsets > 0 >
+     inner on average, the mean PSNR over the 8 views above the
+     initialised model's by a margin; the corner blend's backward bitwise
+     over two calls and against the plain gather; a second, culled run
+     with --learn-shell --regularize-shell (20 iterations; B1 = B2 =
+     iterations, its derived culled capacity below the full one and
+     logged, each view's visible share in (0, 0.5], the offsets moved, its
+     init bitwise equal to the first run's); render of frosting.npz (a PNG
+     equal to the in-process render); init's and a refinement step's parts
+     timed, full and culled (at the derived capacity), and B1 and B2 held
+     against their plain versions on both views' blend inputs, B2 with the
+     loss's cotangent.
 The four main paths (4, 5, 7 and 8) reset the kernels' launch counts just
-before and read them just after; stage 3's extract-shell is read on its
-own. The line before the last is the JSON
+before and read them just after; stage 3's extract-shell and each
+train-frosting are read on their own. The line before the last is the JSON
 kernels record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -81,6 +101,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
@@ -105,6 +126,7 @@ from frosting_tpu_torch.bench.common import (
     timed,
 )
 from frosting_tpu_torch.cameras import look_at_camera
+from frosting_tpu_torch.extract import meshclean
 from frosting_tpu_torch.raster import RasterConfig, render
 from frosting_tpu_torch.raster import blend_cuda
 from frosting_tpu_torch.raster.binning import bin_gaussians
@@ -122,14 +144,16 @@ from frosting_tpu_torch.raster.render import (
     sum_rows_by_gaussian,
 )
 from frosting_tpu_torch import stages_cli
+from frosting_tpu_torch.models import frosting as frosting_lib
 from frosting_tpu_torch.models import sugar as sugar_lib
-from frosting_tpu_torch.ops.ssim import l1_loss, ssim
+from frosting_tpu_torch.ops.ssim import l1_loss, psnr, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import adversarial_blend_inputs
-from frosting_tpu_torch.train import gs_trainer, sugar_trainer
+from frosting_tpu_torch.train import checkpoint, frosting_trainer, gs_trainer, sugar_trainer
 from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import image as image_io
+from frosting_tpu_torch.utils import ply as ply_io
 from frosting_tpu_torch.utils import viewer
 
 # The card's peak rates are in frosting_tpu_torch/bench/common.py.
@@ -197,14 +221,47 @@ SHELL_TARGETS = (1_000_000, 200_000)
 SHELL_RADIUS = (0.97, 1.05)
 SHELL_KEEP = 0.9
 # The ablation methods on the same model. centers: Poisson on the means
-# themselves (radius 1), the mesh then snapped onto them, at 512^3 (at the
+# themselves (radius 1), the mesh then snapped onto them, at 256^3 (at the
 # auto 1024^3 the host QEM of its ~8M-vertex mesh takes ~4.5 min on the
-# card's machine); marching at 256^3 over the cameras' box (+/- 3.85,
+# card's machine, at 512^3 ~1 min: cut to leave the script's time to
+# stages 4-5); marching at 256^3 over the cameras' box (+/- 3.85,
 # cells of 0.030) takes the density's level set 2.7 scales outside the
 # sphere: radius ~1.027 (1.0276 measured before culling).
-CENTERS_POISSON = 512
+CENTERS_POISSON = 256
 CENTERS_RADIUS = (0.97, 1.05)
 MARCHING_RADIUS = (0.99, 1.06)
+ABLATIONS = (("centers", CENTERS_RADIUS, ["--poisson-resolution", str(CENTERS_POISSON)]),
+             ("marching", MARCHING_RADIUS, ["--marching-resolution", "256"]))
+# The ablation runs' process: argv[1] is a JSON list of (common arguments,
+# method arguments); one "ABLATION {...}" line per run.
+_ABLATION_CODE = """
+import json, sys, time
+import torch
+from frosting_tpu_torch import stages_cli
+cuda = torch.cuda.is_available()
+for common, extra in json.loads(sys.argv[1]):
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = stages_cli.main(["extract-shell", *common, *extra])
+    if cuda:
+        torch.cuda.synchronize()
+    res.update(method=extra[1], command_s=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+    print("ABLATION " + json.dumps(res), flush=True)
+"""
+# Stages 4-5 on that known answer: the sphere's Gaussians coloured by
+# position (SH DC (mean + 1.5) / 3, as tests/test_frosting.py colours them)
+# rendered by B1 from the 8 stage views as the scene's ground truth, the
+# surface method's 1M-vertex shell.ply, train-frosting at its defaults (2M
+# Gaussians); cut: iterations. A second, culled run with a learned and
+# regularised shell. The refined model must beat the initialised one's mean
+# PSNR over the 8 views by FROSTING_PSNR_GAIN; a view of a sphere from
+# outside shows at most half its cells ((1 - r / d) / 2 ~ 0.35 at d 3.5).
+FROSTING_N = 2_000_000  # train-frosting's default --gaussians
+FROSTING_ITERS, FROSTING_CULLED_ITERS = 100, 20
+FROSTING_PSNR_GAIN = 1.0  # dB; 3.4 measured on a UV-sphere shell
+FROSTING_STEP_REPS = 5
 DEV = "cuda"
 
 
@@ -921,8 +978,9 @@ def phase_stages(raw, model):
     """The stages main path: a COLMAP scene of the 1M model written to disk
     and driven through stages_cli in process (train-gs, render, train-sugar
     for each method), then its timings and the depth-render check of B1
-    and B2, then stage 3 (phase_extract). Returns (launches per kernel of
-    the stage 1-2 commands, of the first extract-shell, timings)."""
+    and B2, then stage 3 (phase_extract) and stages 4-5 (phase_frosting).
+    Returns (launches per kernel of the stage 1-2 commands, of the first
+    extract-shell, of each train-frosting, timings)."""
     cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
                         max_instances=STAGE_MAX_INSTANCES)
@@ -1017,18 +1075,23 @@ def phase_stages(raw, model):
         torch.cuda.empty_cache()
         extract_launches, timings["extract_shell"] = phase_extract(
             scene_dir, out, common, len(scams))
-    return launches, extract_launches, timings
+        torch.cuda.empty_cache()
+        frosting_launches, timings["frosting"] = phase_frosting(
+            tmp, os.path.join(out, "sugar.ply"), os.path.join(out, "shell_surface.ply"))
+    return launches, extract_launches, frosting_launches, timings
 
 
 def sphere_raw(n, seed=0):
     """Raw parameters of n Gaussians of scale SHELL_SCALE and opacity
-    SHELL_OPACITY whose means lie on the unit sphere (seeded numpy)."""
+    SHELL_OPACITY whose means lie on the unit sphere, coloured by position
+    (seeded numpy)."""
     rng = np.random.default_rng(seed)
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     quats = np.zeros((n, 4), np.float32)
     quats[:, 0] = 1.0
     sh = np.zeros((n, 16, 3), np.float32)
+    sh[:, 0] = (d + 1.5) / 3.0  # colour by position (extraction reads no SH)
     return raw_params((d.astype(np.float32), np.full((n, 3), SHELL_SCALE, np.float32), quats,
                        np.full((n,), SHELL_OPACITY, np.float32), sh))
 
@@ -1048,15 +1111,24 @@ def phase_extract(scene_dir, out, common, n_views):
     in a process of its own, must write a shell.ply equal byte for byte to
     the first run's shell_lowpoly.ply (the same Poisson mesh decimated to
     the same budget); it starts first, and the first run starts once the
-    second has finished its device work and entered its ~5 min of host
-    QEM, so that the two share no device time. Then --method centers at
-    Poisson 512^3 and --method marching at 256^3. Returns (launches of the
-    first command, results)."""
+    second has made its Poisson mesh, so that the second's quantile
+    cleaning (device) runs beside the first's query KNN, density and
+    Poisson, and its host QEM beside the rest. --method centers at Poisson
+    256^3 and --method marching at 256^3 then run in a third process, each
+    in a directory of its own, started when the first run enters its host
+    QEM (its first call of meshclean.decimate), by when the second is in
+    its own: their device parts (seconds) share no device time with the
+    stage-3 runs' parts before QEM, and their host QEM runs beside the
+    others' (the start is logged). The surface method's shell.ply is kept
+    as shell_surface.ply for stages 4-5. Returns (launches of the first
+    command, results)."""
     gauss_lib.save_ply(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device="cpu"),
                        os.path.join(out, "sugar.ply"))
     out_b = out + "_again"
-    os.makedirs(out_b)
-    shutil.copy(os.path.join(out, "sugar.ply"), out_b)
+    ablation_dirs = {method: f"{out}_{method}" for method, _band, _extra in ABLATIONS}
+    for d in (out_b, *ablation_dirs.values()):
+        os.makedirs(d)
+        shutil.copy(os.path.join(out, "sugar.ply"), d)
     shell_ply = os.path.join(out, "shell.ply")
     low_ply = os.path.join(out, "shell_lowpoly.ply")
     results = {}
@@ -1076,11 +1148,31 @@ def phase_extract(scene_dir, out, common, n_views):
         return res
 
     common_b = [out_b if a == out else a for a in common]
+    ablation_log = out + "_ablations.log"
+    ablation_argv = [sys.executable, "-c", _ABLATION_CODE, json.dumps(
+        [([out_d if a == out else a for a in common], ["--method", method, *extra])
+         for (method, _band, extra), out_d in zip(ABLATIONS, ablation_dirs.values())])]
+    root = os.path.dirname(os.path.abspath(__file__))
     again = subprocess.Popen(
         [sys.executable, "-m", "frosting_tpu_torch.stages_cli", "extract-shell", *common_b,
          "--low-poly"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    procs = {"again": again}
+    lock = threading.Lock()  # the first run calls decimate from a thread per budget
+    decimate = meshclean.decimate
+
+    def start_ablations_then_decimate(*args, **kwargs):
+        """The first run's QEM: its device parts before QEM are done, so
+        the ablation runs start here."""
+        with lock:
+            if "ablations" not in procs:
+                results["ablations_start_s"] = time.perf_counter() - t_first
+                with open(ablation_log, "w") as fh:
+                    procs["ablations"] = subprocess.Popen(
+                        ablation_argv, cwd=root, stdout=fh, stderr=subprocess.STDOUT,
+                        text=True)
+        return decimate(*args, **kwargs)
+
     try:
         t0 = time.perf_counter()
         for line in again.stdout:
@@ -1089,10 +1181,13 @@ def phase_extract(scene_dir, out, common, n_views):
                 break
         else:
             raise AssertionError(f"the second extract-shell ended early ({again.wait()})")
-        log(f"second run's device work done in {time.perf_counter() - t0:.1f} s")
+        log(f"second run's Poisson mesh done in {time.perf_counter() - t0:.1f} s")
         blend_cuda.blend_forward.launches = 0
         blend_cuda.blend_backward.launches = 0
-        run("surface", ["--both-poly"])
+        meshclean.decimate = start_ablations_then_decimate
+        t_first = time.perf_counter()
+        res = run("surface", ["--both-poly"])
+        meshclean.decimate = decimate
         torch.cuda.synchronize()
         launches = {"blend_forward": blend_cuda.blend_forward.launches,
                     "blend_backward": blend_cuda.blend_backward.launches}
@@ -1104,10 +1199,31 @@ def phase_extract(scene_dir, out, common, n_views):
         if again.wait() != 0:
             raise AssertionError(f"the second extract-shell failed ({again.returncode})")
         results["again_low_poly"] = {"command_s": time.perf_counter() - t0}
+        if "ablations" not in procs:
+            raise AssertionError("the ablation runs did not start")
+        procs["ablations"].wait()
     finally:
-        if again.poll() is None:
-            again.kill()
-            again.wait()
+        meshclean.decimate = decimate
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ablations = procs["ablations"]
+    before_qem = sum(v for k, v in res["timings_ms"].items()
+                     if k not in ("QEM decimation", "projection", "visibility culling")) / 1e3
+    log(f"the ablation runs started {results['ablations_start_s']:.1f} s into the first run, "
+        f"whose parts before its QEM took {before_qem:.1f} s and which took "
+        f"{res['command_s']:.1f} s in all")
+    with open(ablation_log) as fh:
+        lines = fh.read().splitlines()
+    for line in lines:
+        log(f"  [ablations] {line}")
+    if ablations.returncode != 0:
+        raise AssertionError(f"the ablation runs failed ({ablations.returncode})")
+    for line in lines:
+        if line.startswith("ABLATION "):
+            res = json.loads(line[len("ABLATION "):])
+            results[res["method"]] = res
     for path, target in zip((shell_ply, low_ply), SHELL_TARGETS):
         nv, nf, r = median_radius(path)
         log(f"{os.path.basename(path)}: {nv} vertices, {nf} faces, median radius {r:.5f} "
@@ -1115,23 +1231,308 @@ def phase_extract(scene_dir, out, common, n_views):
         if not (SHELL_KEEP * target <= nv <= target and SHELL_RADIUS[0] <= r <= SHELL_RADIUS[1]):
             raise AssertionError(f"{path}: {nv} vertices, median radius {r}")
         results["surface"][os.path.basename(path)] = {"verts": nv, "faces": nf, "median_r": r}
+    shutil.copy(shell_ply, os.path.join(out, "shell_surface.ply"))
     with open(low_ply, "rb") as f, open(os.path.join(out_b, "shell.ply"), "rb") as g:
         same = f.read() == g.read()
     log(f"second run (--low-poly): shell.ply {'equals' if same else 'DIFFERS from'} the first "
         "run's shell_lowpoly.ply byte for byte")
     if not same:
         raise AssertionError("two extractions of the same model differ")
-    for method, band, extra in (
-            ("centers", CENTERS_RADIUS, ["--poisson-resolution", str(CENTERS_POISSON)]),
-            ("marching", MARCHING_RADIUS, ["--marching-resolution", "256"])):
-        run(method, ["--method", method, *extra])
-        nv, nf, r = median_radius(shell_ply)
+    for method, band, extra in ABLATIONS:
+        res = results[method]
+        log(f"extract-shell --method {method} {' '.join(extra)} (beside the stage-3 runs' QEM): "
+            f"{res['command_s']:.1f} s, peak device memory {res['peak_gib']:.2f} GiB; parts "
+            "(ms): " + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+        nv, nf, r = median_radius(os.path.join(ablation_dirs[method], "shell.ply"))
         log(f"--method {method}: {nv} vertices, {nf} faces, median radius {r:.5f} "
             f"(band {band})")
         if not (0 < nv <= SHELL_TARGETS[0] and band[0] <= r <= band[1]):
             raise AssertionError(f"--method {method}: {nv} vertices, median radius {r}")
         results[method]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
     return launches, results
+
+
+def _counted(argv):
+    """stages_cli.main(argv) with the kernels' counts set to 0 just before
+    and read just after; returns (result, launches, seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend_cuda.blend_forward.launches = 0
+    blend_cuda.blend_backward.launches = 0
+    t0 = time.perf_counter()
+    res = stages_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {"blend_forward": blend_cuda.blend_forward.launches,
+                "blend_backward": blend_cuda.blend_backward.launches}
+    return res, launches, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _groups_equal(a, b):
+    ga, gb = frosting_trainer.param_groups(a), frosting_trainer.param_groups(b)
+    return ga.keys() == gb.keys() and all(torch.equal(ga[k], gb[k]) for k in ga)
+
+
+def _mean_psnr(params, meta, cams, gt, rcfg):
+    """Mean PSNR of the model's renders of the views against gt [n, 3, H, W]."""
+    with torch.inference_mode():
+        model = frosting_lib.to_gaussians(params, meta)
+        vals = [float(psnr(torch.clamp(render(*model, c, rcfg).image, 0.0, 1.0),
+                           torch.from_numpy(g).to(DEV))) for c, g in zip(cams, gt)]
+    return float(np.mean(vals)), vals
+
+
+def phase_frosting(tmp, sugar_ply, shell_ply):
+    """Stages 4-5 through stages_cli in process, at full width: a COLMAP
+    scene of the coloured sphere's renders, sugar.ply and the surface
+    method's 1M-vertex shell.ply; train-frosting at its defaults (2M
+    Gaussians), checked and timed; a second run culled, with a learned and
+    regularised shell; render of frosting.npz; the corner blend's backward
+    bitwise over two calls and against the plain gather; a refinement step
+    part by part, full and culled. Returns (launches of each command,
+    results)."""
+    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+    scene_dir = os.path.join(tmp, "frosting_scene")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        sphere = gauss_lib.activate(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device=DEV))
+        synthetic.write_colmap_scene(scene_dir, sphere, cams, rcfg)
+        del sphere
+    log(f"frosting: COLMAP scene of the coloured sphere ({len(cams)} views at {MAIN_W}x{MAIN_H}) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    outs = [os.path.join(tmp, "frosting"), os.path.join(tmp, "frosting_culled")]
+    for o in outs:
+        os.makedirs(o)
+        shutil.copy(sugar_ply, os.path.join(o, "sugar.ply"))
+        shutil.copy(shell_ply, os.path.join(o, "shell.ply"))
+    n_shell = len(stages_cli.load_mesh(shell_ply)[0])
+
+    def common(o):
+        return ["-s", scene_dir, "-o", o, "--max-instances", str(STAGE_MAX_INSTANCES),
+                "--device", DEV]
+
+    results, launches = {}, {}
+    res, launches["frosting"], secs, peak = _counted(
+        ["train-frosting", *common(outs[0]), "--gaussians", str(FROSTING_N),
+         "--iterations", str(FROSTING_ITERS)])
+    hist, (init_p, meta), trained = res["history"], res["init"], res["trained"]
+    n = trained.bary_logits.shape[0]
+    results["command_s"], results["peak_gib"] = secs, peak
+    results["timings_ms"], results["history"] = res["timings_ms"], hist
+    log(f"train-frosting (shell {n_shell} vertices, {n} Gaussians, {FROSTING_ITERS} "
+        f"iterations): {secs:.1f} s, peak device memory {peak:.2f} GiB, launches "
+        f"{launches['frosting']}; parts (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+    log("  " + "; ".join(f"it {h['iter']} loss {h['loss']:.4f} psnr {h['psnr']:.2f} "
+                         f"{h['iters_per_s']:.2f} it/s, overflow steps {h['overflow_steps']}"
+                         for h in hist))
+    want = {"blend_forward": FROSTING_ITERS, "blend_backward": FROSTING_ITERS}
+    if launches["frosting"] != want:
+        raise AssertionError(f"train-frosting launched {launches['frosting']}, not {want}")
+    if not (n_shell >= SHELL_KEEP * SHELL_TARGETS[0] and n == FROSTING_N):
+        raise AssertionError(f"train-frosting ran on {n_shell} vertices, {n} Gaussians")
+    if not all(np.isfinite(h["loss"]) and not h["overflow"] and h["overflow_steps"] == 0
+               for h in hist):
+        raise AssertionError(f"train-frosting: a non-finite loss or an overflow: {hist}")
+    loaded, lmeta = checkpoint.load_frosting(os.path.join(outs[0], "frosting.npz"), device=DEV)
+    if not (_groups_equal(loaded, trained) and torch.equal(lmeta.cell_idx, meta.cell_idx)
+            and torch.equal(lmeta.cell_bounds, meta.cell_bounds)
+            and torch.equal(lmeta.faces, meta.faces)):
+        raise AssertionError("frosting.npz does not load back to the refined model bitwise")
+    ply = ply_io.read_ply(os.path.join(outs[0], "frosting.ply"))["vertex"]
+    if not (len(ply["x"]) == n and all(np.isfinite(ply[k]).all() for k in ply)):
+        raise AssertionError("frosting.ply does not load back")
+    if not all(torch.isfinite(t).all() for t in frosting_trainer.param_groups(trained).values()):
+        raise AssertionError("the refined model has non-finite values")
+    with torch.inference_mode():
+        centres = frosting_lib.to_gaussians(trained, meta)[0]
+        inner, outer, _ = frosting_lib.shell_sheets(trained, meta.faces, meta.incidence)
+        r_c = float(centres.norm(dim=1).median())
+        band = (float(inner.norm(dim=1).median()), float(outer.norm(dim=1).median()))
+        offsets = (float(trained.inner_dist.mean()), float(trained.outer_dist.mean()))
+        del centres, inner, outer
+    log(f"frosting centres' median radius {r_c:.5f}, the sheets' median radii {band}; "
+        f"mean inner / outer offset {offsets}")
+    if not (band[0] <= r_c <= band[1] and offsets[1] > 0 > offsets[0]):
+        raise AssertionError("the frosting layer does not wrap the shell")
+    args = stages_cli.build_parser().parse_args(["render", *common(outs[0])])
+    _scene, scams, gt, _rcfg = stages_cli._load_scene(args)
+    before, before_v = _mean_psnr(init_p, meta, scams, gt, rcfg)
+    after, after_v = _mean_psnr(trained, meta, scams, gt, rcfg)
+    results["psnr_init"], results["psnr_refined"] = before_v, after_v
+    log(f"mean PSNR over the {len(scams)} views: init {before:.3f} dB, refined {after:.3f} dB "
+        f"(gain {after - before:.3f}, required {FROSTING_PSNR_GAIN}); per view "
+        f"{[round(v, 2) for v in before_v]} -> {[round(v, 2) for v in after_v]}")
+    if not after >= before + FROSTING_PSNR_GAIN:
+        raise AssertionError("refinement did not raise the mean PSNR by the margin")
+    results["corner_blend"] = hold_corner_blend(trained, meta)
+
+    res2, launches["frosting_culled"], secs, peak = _counted(
+        ["train-frosting", *common(outs[1]), "--gaussians", str(FROSTING_N),
+         "--iterations", str(FROSTING_CULLED_ITERS),
+         "--occlusion-culling", "--learn-shell", "--regularize-shell"])
+    init2, meta2 = res2["init"]
+    trained2, culled_cap = res2["trained"], res2["culled_max_instances"]
+    results["culled"] = {"command_s": secs, "peak_gib": peak, "timings_ms": res2["timings_ms"],
+                         "history": res2["history"], "max_instances": culled_cap}
+    log(f"train-frosting --occlusion-culling --learn-shell --regularize-shell "
+        f"({FROSTING_CULLED_ITERS} iterations): {secs:.1f} s, peak {peak:.2f} GiB, launches "
+        f"{launches['frosting_culled']}, culled instance capacity {culled_cap} (full "
+        f"{STAGE_MAX_INSTANCES}); parts (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res2["timings_ms"].items()))
+    want = {"blend_forward": FROSTING_CULLED_ITERS, "blend_backward": FROSTING_CULLED_ITERS}
+    if launches["frosting_culled"] != want:
+        raise AssertionError(f"the culled run launched {launches['frosting_culled']}")
+    if not (culled_cap is not None and 0 < culled_cap < STAGE_MAX_INSTANCES):
+        raise AssertionError(f"the culled run derived no smaller capacity: {culled_cap}")
+    if not all(np.isfinite(h["loss"]) and not h["overflow"] and h["overflow_steps"] == 0
+               for h in res2["history"]):
+        raise AssertionError("the culled run: a non-finite loss or an overflow")
+    if not (_groups_equal(init2, init_p) and all(
+            torch.equal(getattr(meta, k), getattr(meta2, k))
+            for k in ("faces", "cell_idx", "cell_bounds"))):
+        raise AssertionError("two init_frosting calls with one seed differ")
+    log("two init_frosting calls (one per command, generator seed 0) are bitwise equal")
+    moved = [float((getattr(trained2, k) - getattr(init2, k)).abs().max())
+             for k in ("inner_dist", "outer_dist")]
+    if not (min(moved) > 0 and torch.isfinite(trained2.inner_dist).all()
+            and torch.isfinite(trained2.outer_dist).all()):
+        raise AssertionError(f"the learned shell's offsets did not move: {moved}")
+    vis = frosting_trainer.precompute_visibility(init2, meta2, scams, rcfg)
+    shares = vis[:, :n].mean(dim=1).tolist()
+    results["culled"]["visible_share"] = shares
+    log(f"visible share of the frosting Gaussians per view {[round(x, 4) for x in shares]}; "
+        f"largest offset change {moved}")
+    if not all(0.0 < x <= 0.5 for x in shares):
+        raise AssertionError("a view's visible share lies outside (0, 0.5]")
+    del res2, init2, meta2, trained2
+
+    stages_cli.main(["render", *common(outs[0])])
+    with torch.inference_mode():
+        img = np.clip(render(*frosting_lib.to_gaussians(loaded, lmeta), scams[0],
+                             rcfg).image.cpu().numpy(), 0, 1)
+    png, mode = image_io.read_image(os.path.join(outs[0], "renders", "train_00000.png"))
+    if not (mode == "RGB" and np.array_equal(png, (img.transpose(1, 2, 0) * 255).astype(np.uint8))):
+        raise AssertionError("render of frosting.npz: the PNG differs from the render")
+    log("render of frosting.npz: renders/train_00000.png decodes to the in-process render")
+    del loaded, lmeta, init_p
+    torch.cuda.empty_cache()
+    results["step_ms"], results["max_abs_err"] = frosting_step_timings(
+        trained, meta, scams[0], gt[0], rcfg,
+        dataclasses.replace(rcfg, max_instances=culled_cap), vis[0])
+    return launches, results
+
+
+def hold_corner_blend(params, meta):
+    """The corner blend's backward at full width: two calls bitwise equal,
+    and against autograd through the plain gather (corners[cell_idx] and a
+    weighted sum) to 1e-5 of each output's largest magnitude."""
+    corners = frosting_lib.cell_corners(params, meta.faces, meta.incidence).detach()
+    logits = params.bary_logits.detach()
+    g = torch.randn((logits.shape[0], 3), generator=torch.Generator(device=DEV).manual_seed(0),
+                    device=DEV)
+
+    def grads(plain):
+        w = torch.softmax(logits, -1).requires_grad_(True)
+        c = corners.clone().requires_grad_(True)
+        if plain:
+            m = torch.sum(w[..., None] * c[meta.cell_idx], dim=1)
+        else:
+            m = frosting_lib.CornerBlend.apply(w, c, meta.cell_idx, meta.cell_bounds)
+        return torch.autograd.grad(m, [w, c], g)
+
+    first, second, plain = grads(False), grads(False), grads(True)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    errs = [float(((a - p).abs() / p.abs().max().clamp_min(1e-30)).max())
+            for a, p in zip(first, plain)]
+    plain_again = grads(True)
+    plain_same = all(torch.equal(a, b) for a, b in zip(plain, plain_again))
+    log(f"corner blend backward at {logits.shape[0]} rows: two calls "
+        f"{'bitwise equal' if same else 'DIFFER'}; against the plain gather (normalised) "
+        f"d_w {errs[0]:.3e}, d_corners {errs[1]:.3e}; the plain gather's two calls "
+        f"{'equal' if plain_same else 'differ'}")
+    if not same or max(errs) > 1e-5:
+        raise AssertionError("the corner blend's backward is not reproducible or disagrees")
+    return {"bitwise": same, "max_err_normalised": errs, "plain_bitwise": plain_same}
+
+
+def frosting_step_timings(params, meta, cam, gt, rcfg, rcfg_culled, vis):
+    """A refinement step at full width part by part (CUDA events between
+    the parts, median of FROSTING_STEP_REPS after a warm-up), cut where
+    frosting_trainer.train_step passes from one part to the next, on the
+    full view (rcfg) and on the same view culled by its visibility mask
+    (rcfg_culled, the culled run's derived capacity); then the whole
+    train_step of each (CUDA events, median of 5); then B1 and B2 held
+    against their plain versions on each view's blend inputs, B2 with the
+    loss's cotangent. Returns (the times, the max abs errors)."""
+    cfg = frosting_trainer.FrostingTrainConfig()
+    opt = frosting_trainer.make_frosting_optimizer(cfg, TRAIN_EXTENT)
+    state = opt.init(frosting_trainer.param_groups(params))
+    corners = frosting_trainer.frozen_corners(params, meta, opt)
+    gt = torch.from_numpy(gt).to(DEV)
+    bg = torch.zeros(3, device=DEV)
+    out, errs = {}, {}
+    for label, mask, view_cfg in (("full", torch.ones_like(vis), rcfg),
+                                  ("culled", vis, rcfg_culled)):
+        runs = []
+        for _ in range(FROSTING_STEP_REPS + 1):
+            groups = frosting_trainer.param_groups(params)
+            leaves = {g: groups[g].detach().requires_grad_(True) for g in opt.groups}
+            p = frosting_trainer.with_groups(params, leaves)
+            t = Timer()
+            t.mark("start")
+            means, scales, quats, opac, sh = frosting_lib.activate_frosting(p, meta, corners)
+            act = (means, scales, quats, opac * mask, sh)
+            t.mark("corner blend + activation")
+            act_l = [a.detach().requires_grad_(True) for a in act]
+            proj = preprocess(*act_l, cam, view_cfg, active_sh_degree=3)
+            fields = pack_fields(proj)
+            t.mark("preprocess")
+            binned = bin_gaussians(proj.rect, proj.depths, proj.valid, view_cfg)
+            t.mark("binning")
+            o = blend_cuda.blend_forward(fields.detach(), binned, view_cfg)
+            t.mark("blend_forward (B1)")
+            o_leaf = o.requires_grad_(True)
+            loss = frosting_trainer.photometric(o_leaf[:3] + o_leaf[3][None] * bg[:, None, None],
+                                                gt, cfg)
+            (g_out,) = torch.autograd.grad(loss, o_leaf)
+            t.mark("loss + SSIM, forward and backward")
+            rows = blend_cuda.blend_backward(fields.detach(), binned, view_cfg, o.detach(),
+                                             g_out.contiguous())
+            t.mark("blend_backward (B2)")
+            dfields = sum_rows_by_gaussian(rows, binned.inst_gauss, fields.shape[0])
+            t.mark("reduction (sorted segment sum)")
+            d_act = torch.autograd.grad(fields, act_l, dfields, allow_unused=True)
+            t.mark("preprocess backward")
+            used = [(a, d) for a, d in zip(act, d_act) if d is not None]
+            grads = torch.autograd.grad([a for a, _ in used], list(leaves.values()),
+                                        [d for _, d in used])
+            t.mark("corner blend + activation backward")
+            opt.step(groups, dict(zip(leaves, grads)), state, torch.isfinite(loss.detach()))
+            t.mark("Adam")
+            runs.append(t.parts())
+        runs = runs[1:]
+        parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        parts["sum of parts"] = sum(parts.values())
+        parts["instances"] = int(binned.num_instances)
+        parts["overflow"] = bool(binned.overflow)
+        parts["train_step"] = cuda_ms(lambda: frosting_trainer.train_step(
+            params, state, meta, cam, gt, mask, opt, view_cfg, cfg, 3, None, corners), 5)
+        out[label] = parts
+        log(f"refinement step at {MAIN_W}x{MAIN_H}, {params.bary_logits.shape[0]} Gaussians, "
+            f"{label}: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f" ms ({1e3 / parts['train_step']:.2f} it/s), max_instances "
+            f"{view_cfg.max_instances}")
+        held = f"the refinement step's blend inputs, {label} view"
+        with torch.no_grad():
+            errs[label] = {
+                "blend_forward": compare(held, fields.detach(), binned, view_cfg),
+                "blend_backward": compare_backward(held, fields.detach(), binned, view_cfg,
+                                                   plain_chunk=64, g=g_out.contiguous())}
+        del fields, binned, o, o_leaf, g_out, rows, dfields
+        torch.cuda.empty_cache()
+    return out, errs
 
 
 def stages_timings(gs_path, scene, gt0):
@@ -1410,10 +1811,12 @@ def main():
     bench_profiles()
 
     # 8. the stages path: a scene on disk through stages_cli
-    stage_launches, extract_launches, stage_times = phase_stages(raw, model)
+    stage_launches, extract_launches, frosting_launches, stage_times = phase_stages(raw, model)
     log(json.dumps({"stages": stage_times}))
-    for name, err in stage_times["depth_render_max_abs_err"].items():
-        max_err[name] = max(max_err[name], err)
+    for errs in (stage_times["depth_render_max_abs_err"],
+                 *stage_times["frosting"]["max_abs_err"].values()):
+        for name, err in errs.items():
+            max_err[name] = max(max_err[name], err)
 
     def record(name, line, b, sb, times, plain):
         return {
@@ -1429,6 +1832,8 @@ def main():
                 "bench": bench_launches[name],
                 "stages": stage_launches[name],
                 "extract_shell": extract_launches[name],
+                "frosting": frosting_launches["frosting"][name],
+                "frosting_culled": frosting_launches["frosting_culled"][name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs

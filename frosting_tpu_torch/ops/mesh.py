@@ -4,16 +4,25 @@ Counterpart of ``frosting_tpu/ops/mesh.py`` (the PyTorch3D mesh ops the
 reference leans on: Meshes normals, mesh_normal_consistency,
 mesh_laplacian_smoothing). The tensor functions run on the device of their
 inputs; ``edges_from_faces`` and ``adjacent_face_pairs`` are host-side
-topology over numpy arrays, as in JAX. The scatter-adds are ``index_add_``,
-whose float atomics on the GPU sum in a varying order: these ops feed
-extraction's per-vertex normals and the later stages' losses, where the
-last bits do not matter.
+topology over numpy arrays, as in JAX. ``vertex_normals`` sums the face
+normals into the vertices in a fixed order (``ops/segment.py``), with no
+float atomics, so its result is bitwise reproducible on the card: the
+Frosting layer offsets every cell corner along these normals and freezes
+vertices on a strict inside test, where one flipped bit could change which
+ones freeze. The order is that of JAX's three scatters on the CPU (corner
+0 of every face in face order, then corner 1, then corner 2), and depends
+only on the faces: build it once per mesh (``vertex_incidence``).
+``laplacian_smoothing_loss`` still sums with ``index_add``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
+
+from frosting_tpu_torch.ops import segment
 
 
 def _corners(verts, faces):
@@ -33,13 +42,30 @@ def face_areas(verts: torch.Tensor, faces: torch.Tensor):
     return 0.5 * torch.linalg.norm(torch.linalg.cross(v1 - v0, v2 - v0), dim=-1)
 
 
-def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, eps=1e-12):
-    """[V, 3] area-weighted unit vertex normals (PyTorch3D convention)."""
+class VertexIncidence(NamedTuple):
+    """The faces around each vertex, in the order their normals are summed."""
+
+    face: torch.Tensor  # [3F] face of each (vertex, face corner) incidence
+    offsets: torch.Tensor  # [V + 1] bounds of each vertex's run in `face`
+
+
+def vertex_incidence(faces: torch.Tensor, n_verts: int) -> VertexIncidence:
+    """The (vertex, face corner) incidences of a mesh ordered by vertex with
+    a stable sort of the corner-major list (corner 0 of faces 0..F-1, then
+    corner 1, then corner 2)."""
+    order, offsets = segment.sort_by_index(faces.long().t().reshape(-1), n_verts)
+    return VertexIncidence(order % faces.shape[0], offsets)
+
+
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, eps=1e-12,
+                   incidence: Optional[VertexIncidence] = None):
+    """[V, 3] area-weighted unit vertex normals (PyTorch3D convention),
+    summed in the fixed order of ``incidence`` (built here when not given)."""
+    if incidence is None:
+        incidence = vertex_incidence(faces, verts.shape[0])
     v0, v1, v2 = _corners(verts, faces)
     fn = torch.linalg.cross(v1 - v0, v2 - v0)  # area-weighted
-    vn = torch.zeros_like(verts)
-    for i in range(3):
-        vn.index_add_(0, faces[:, i].long(), fn)
+    vn = segment.segment_sum(fn[incidence.face], incidence.offsets)
     return vn / torch.clamp(torch.linalg.norm(vn, dim=-1, keepdim=True), min=eps)
 
 

@@ -1,6 +1,7 @@
 """Quaternion algebra (wxyz convention) on torch tensors.
 
-Counterpart of ``frosting_tpu/ops/quat.py`` (normalize, to_matrix).
+Counterpart of ``frosting_tpu/ops/quat.py`` (normalize, to_matrix,
+conjugate, apply).
 Convention: q = (w, x, y, z), the 3DGS rotation parameter layout.
 """
 
@@ -34,3 +35,15 @@ def to_matrix(q: torch.Tensor) -> torch.Tensor:
     row1 = torch.stack([r10, r11, r12], dim=-1)
     row2 = torch.stack([r20, r21, r22], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v [..., 3] by unit quaternions q [..., 4]."""
+    qvec = q[..., 1:]
+    uv = torch.linalg.cross(qvec, v)
+    uuv = torch.linalg.cross(qvec, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)

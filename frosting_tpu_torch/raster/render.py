@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from frosting_tpu_torch.cameras import Camera
+from frosting_tpu_torch.ops import segment
 from frosting_tpu_torch.raster.binning import Binned, bin_gaussians
 from frosting_tpu_torch.raster.blend_cuda import blend_backward, blend_forward
 from frosting_tpu_torch.raster.config import RasterConfig
@@ -64,12 +65,7 @@ def sum_rows_by_gaussian(
     (``segment_reduce`` over offsets found by ``searchsorted``, which needs
     no host sync). ``index_add_`` would sum with atomics on the GPU, whose
     order, and so the last bits of the result, change from run to run."""
-    ids, order = torch.sort(inst_gauss, stable=True)
-    bounds = torch.arange(n_rows + 1, device=ids.device, dtype=ids.dtype)
-    offsets = torch.searchsorted(ids, bounds)
-    return torch.segment_reduce(
-        rows[order], "sum", offsets=offsets, axis=0, unsafe=True, initial=0.0
-    )
+    return segment.sum_by_index(rows, inst_gauss, n_rows)
 
 
 class BlendFunction(torch.autograd.Function):

@@ -1,20 +1,23 @@
 """Per-stage command line of the port: stage 1 (3DGS), stage 2 (coarse
-SuGaR), stage 3 (shell extraction) and rendering of a scene on disk.
+SuGaR), stage 3 (shell extraction), stages 4-5 (the Frosting layer) and
+rendering of a scene on disk.
 
-Counterpart of the ``train-gs``, ``train-sugar``, ``extract-shell`` and
-``render`` commands of ``frosting_tpu/stages_cli.py``. Each command reads
-and writes artifacts in -o/--output (gs.ply, sugar.ply, shell.ply,
-shell_lowpoly.ply, renders/), so the stages run and resume independently:
+Counterpart of the ``train-gs``, ``train-sugar``, ``extract-shell``,
+``train-frosting`` and ``render`` commands of ``frosting_tpu/stages_cli.py``.
+Each command reads and writes artifacts in -o/--output (gs.ply, sugar.ply,
+shell.ply, shell_lowpoly.ply, frosting.npz, frosting.ply, renders/), so the
+stages run and resume independently:
 
-  python -m frosting_tpu_torch.stages_cli train-gs      -s SCENE -o OUT [...]
-  python -m frosting_tpu_torch.stages_cli train-sugar   -s SCENE -o OUT -r density|sdf|dn_consistency
-  python -m frosting_tpu_torch.stages_cli extract-shell -s SCENE -o OUT [--both-poly] [--method surface|centers|marching]
-  python -m frosting_tpu_torch.stages_cli render        -s SCENE -o OUT
+  python -m frosting_tpu_torch.stages_cli train-gs       -s SCENE -o OUT [...]
+  python -m frosting_tpu_torch.stages_cli train-sugar    -s SCENE -o OUT -r density|sdf|dn_consistency
+  python -m frosting_tpu_torch.stages_cli extract-shell  -s SCENE -o OUT [--both-poly] [--method surface|centers|marching]
+  python -m frosting_tpu_torch.stages_cli train-frosting -s SCENE -o OUT [--occlusion-culling] [--learn-shell] [...]
+  python -m frosting_tpu_torch.stages_cli render         -s SCENE -o OUT
 
 SCENE is a COLMAP scene (sparse/0 or sparse, and images/). The commands run
 on the CUDA card by default; ``--device cpu`` runs them on the CPU, through
-the blend kernels' plain versions. ``render`` renders gs.ply: the frosting
-model's branch of the JAX command is not ported yet.
+the blend kernels' plain versions. ``render`` renders frosting.npz where
+there is one, gs.ply otherwise.
 """
 
 from __future__ import annotations
@@ -175,20 +178,70 @@ def load_live_gaussians(path, device="cuda"):
     })
 
 
+def cmd_train_frosting(args):
+    """Build the Frosting layer around shell.ply from sugar.ply (stage 4)
+    and refine it (stage 5); write frosting.npz and frosting.ply. Returns
+    the refinement's log-step metrics, the parts' times (ms), the
+    initialised model (params, meta), the refined params and the culled
+    iterations' instance capacity (None without culling)."""
+    from frosting_tpu_torch.models import frosting as frosting_lib
+    from frosting_tpu_torch.pipeline import export_frosting_ply
+    from frosting_tpu_torch.scene.gaussians import activate
+    from frosting_tpu_torch.train import checkpoint, frosting_trainer
+    from frosting_tpu_torch.utils.profiling import PartTimes
+
+    parts = PartTimes(args.device)
+    scene, cams, gt, rcfg = _load_scene(args)
+    params = load_live_gaussians(os.path.join(args.output, "sugar.ply"), device=args.device)
+    verts, faces = load_mesh(_mesh_path(args.output))
+    with torch.no_grad():
+        means, scales, quats, opac, _sh = activate(params)
+    fcfg = frosting_lib.FrostingConfig(n_gaussians=args.gaussians)
+    with parts.device("init"):
+        fparams, meta = frosting_lib.init_frosting(
+            verts, faces, means, scales, quats, opac, params, fcfg, scene.spatial_extent,
+            use_background=args.use_background,
+            generator=torch.Generator(device=args.device).manual_seed(0), parts=parts)
+    tcfg = frosting_trainer.FrostingTrainConfig(
+        iterations=args.iterations,
+        lr_max_steps=args.iterations,
+        white_background=args.white_bg,
+        use_occlusion_culling=args.occlusion_culling,
+        learn_shell=args.learn_shell,
+        regularize_shell=args.regularize_shell,
+        normal_consistency_factor=args.normal_consistency_factor,
+    )
+    trained, history, rcfg_culled = frosting_trainer.train(
+        fparams, meta, scene.spatial_extent, cams, gt, rcfg, tcfg, device=args.device,
+        parts=parts)
+    with parts.host("checkpoint write"):
+        checkpoint.save_frosting(os.path.join(args.output, "frosting.npz"), trained, meta)
+    with parts.host("PLY write"):
+        export_frosting_ply(trained, meta, os.path.join(args.output, "frosting.ply"))
+    print("wrote", os.path.join(args.output, "frosting.npz"))
+    return {"history": history, "timings_ms": parts.result(), "init": (fparams, meta),
+            "trained": trained,
+            "culled_max_instances": None if rcfg_culled is None else rcfg_culled.max_instances}
+
+
 def cmd_render(args):
-    """Render gs.ply from the train and test cameras into
-    renders/{split}_{i:05d}.png."""
+    """Render frosting.npz (or gs.ply where there is none) from the train
+    and test cameras into renders/{split}_{i:05d}.png."""
+    from frosting_tpu_torch.models import frosting as frosting_lib
     from frosting_tpu_torch.raster import render
     from frosting_tpu_torch.scene.gaussians import activate
+    from frosting_tpu_torch.train import checkpoint
     from frosting_tpu_torch.utils.png import encode_png
 
-    if os.path.exists(os.path.join(args.output, "frosting.npz")):
-        raise NotImplementedError(
-            "rendering a frosting.npz model is not ported yet; "
-            "this command renders gs.ply")
     scene, cams, _gt, rcfg = _load_scene(args)
-    model = activate(load_live_gaussians(
-        os.path.join(args.output, "gs.ply"), device=args.device))
+    npz = os.path.join(args.output, "frosting.npz")
+    with torch.no_grad():
+        if os.path.exists(npz):
+            model = frosting_lib.to_gaussians(
+                *checkpoint.load_frosting(npz, device=args.device))
+        else:
+            model = activate(load_live_gaussians(
+                os.path.join(args.output, "gs.ply"), device=args.device))
     bg = torch.full((3,), 1.0 if args.white_bg else 0.0, device=args.device)
     out_dir = os.path.join(args.output, "renders")
     os.makedirs(out_dir, exist_ok=True)
@@ -239,6 +292,17 @@ def build_parser():
     sp.add_argument("--marching-resolution", type=int, default=256)
     sp.set_defaults(fn=cmd_extract_shell)
 
+    sp = sub.add_parser("train-frosting")
+    _common(sp)
+    sp.add_argument("--gaussians", type=int, default=2_000_000)
+    sp.add_argument("--iterations", type=int, default=15_000)
+    sp.add_argument("--use-background", action="store_true")
+    sp.add_argument("--occlusion-culling", action="store_true")
+    sp.add_argument("--learn-shell", action="store_true")
+    sp.add_argument("--regularize-shell", action="store_true")
+    sp.add_argument("--normal-consistency-factor", type=float, default=0.1)
+    sp.set_defaults(fn=cmd_train_frosting)
+
     sp = sub.add_parser("render")
     _common(sp)
     sp.set_defaults(fn=cmd_render)
@@ -246,9 +310,10 @@ def build_parser():
 
 
 def main(argv=None):
-    """Run one command; returns what the command returns (the training
-    commands: their log-step metrics; extract-shell: its timings and
-    counts)."""
+    """Run one command; returns what the command returns (train-gs and
+    train-sugar: their log-step metrics; extract-shell: its timings and
+    counts; train-frosting: its metrics, timings, initialised and refined
+    models)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

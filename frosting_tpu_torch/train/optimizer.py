@@ -1,8 +1,10 @@
 """Per-group Adam with the 3DGS exponential position schedule.
 
 Counterpart of ``frosting_tpu/train/optimizer.py`` (reference
-gaussian_model.py:149-175): one Adam per parameter field, b1 0.9, b2 0.999,
-eps 1e-15 added outside the square root, bias correction, the position LR a
+gaussian_model.py:149-175) and of the Frosting trainer's optax
+``multi_transform``: one Adam per parameter group (the groups are those
+given a learning rate; a frozen field has none), b1 0.9, b2 0.999, eps
+1e-15 added outside the square root, bias correction, the position LR a
 log-linear schedule scaled by the scene's spatial extent, ``sh_rest`` at
 ``feature_lr / 20`` and ``mask`` frozen. The arithmetic follows optax's
 ``scale_by_adam`` + ``scale_by_learning_rate`` step for step: each group
@@ -23,11 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
-# The optimised fields of GaussianParams; ``mask`` is frozen.
+# The optimised fields of GaussianParams (the groups of make_gs_optimizer);
+# ``mask`` is frozen.
 GROUPS = ("means3d", "sh_dc", "sh_rest", "scales_log", "quats_raw", "opacities_raw")
 B1, B2 = 0.9, 0.999
 
@@ -99,8 +102,14 @@ class GSOptimizer:
     lrs: Dict[str, Union[float, Schedule]]
     eps: float = 1e-15
 
+    @property
+    def groups(self):
+        """The trained groups: those with a learning rate. A frozen field
+        (optax's ``set_to_zero``) is simply absent."""
+        return tuple(self.lrs)
+
     def init(self, params) -> AdamState:
-        fields = {g: getattr(params, g) for g in GROUPS}
+        fields = {g: _group(params, g) for g in self.groups}
         return AdamState(
             mu={g: torch.zeros_like(t) for g, t in fields.items()},
             nu={g: torch.zeros_like(t) for g, t in fields.items()},
@@ -121,8 +130,8 @@ class GSOptimizer:
         """One Adam step of every group, in place on params and state. With
         ``good`` (a [] bool device tensor) false, params, moments and counts
         are left as they were."""
-        for g in GROUPS:
-            p = getattr(params, g)
+        for g in self.groups:
+            p = _group(params, g)
             grad = grads[g]
             if good is not None:
                 grad = torch.where(good, grad, 0.0)
@@ -146,6 +155,13 @@ class GSOptimizer:
             state.mu[g] = mu
             state.nu[g] = nu
             state.count[g] = count
+
+
+def _group(params, g: str) -> torch.Tensor:
+    """A group's tensor: a field of a params dataclass, or an entry of a
+    {group: tensor} mapping (the Frosting trainer names its background
+    Gaussians' fields bg_<field>)."""
+    return params[g] if isinstance(params, Mapping) else getattr(params, g)
 
 
 def make_gs_optimizer(

@@ -5,7 +5,9 @@ entry points; the stage-2 path: the exact KNN against its CPU result, B2
 on a depth render's inputs and one SuGaR step; the stage-3 path: the mesh
 rasterizer, the query KNN, marching tetrahedra, the Poisson solve (its
 indicator bitwise equal over two runs) and a small extract_shell, each on
-the card against the CPU. Marked `gpu`: every test skips without a CUDA device. This
+the card against the CPU; stages 4-5: init_frosting (bitwise over two
+calls), the corner blend's backward (bitwise over two calls, against the
+plain gather) and one refinement step, each against the CPU. Marked `gpu`: every test skips without a CUDA device. This
 file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -21,8 +23,10 @@ from frosting_tpu_torch.bench.common import bench_scene, graph_ms
 from frosting_tpu_torch.cameras import look_at_camera
 from frosting_tpu_torch.extract import marching, poisson
 from frosting_tpu_torch.extract import shell as shell_lib
+from frosting_tpu_torch.models import frosting as frosting_lib
 from frosting_tpu_torch.models import sugar as sugar_lib
 from frosting_tpu_torch.ops import knn as knn_lib
+from frosting_tpu_torch.ops import mesh as mesh_ops
 from frosting_tpu_torch.ops import mesh_raster
 from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.raster import blend_cuda
@@ -39,7 +43,7 @@ from frosting_tpu_torch.scene.synthetic import (
     adversarial_blend_inputs,
     gaussian_blob_scene,
 )
-from frosting_tpu_torch.train import gs_trainer, sugar_trainer
+from frosting_tpu_torch.train import frosting_trainer, gs_trainer, sugar_trainer
 from frosting_tpu_torch.train import optimizer as opt_lib
 
 pytestmark = pytest.mark.gpu
@@ -568,3 +572,142 @@ def test_small_extract_shell_on_the_card(cuda, method):
     assert chamfer <= 0.5 * 2.6 / 127, chamfer
     r_c, r_g = (np.median(np.linalg.norm(v, axis=1)) for v in meshes)
     assert abs(r_g - r_c) <= 0.01 * r_c
+
+
+def _frosting_inputs(n_src=3_000, n=20_000):
+    """A closed mesh near the unit sphere (marching tetrahedra on the CPU),
+    n_src source Gaussians on the sphere coloured by position, and the
+    draws of an n-Gaussian init."""
+    grid, origin, spacing = _sphere_mesh()
+    v, f = marching.marching_tets(grid, 0.0, origin, spacing, max_slab_cubes=40_000)
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(n_src, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    q = rng.normal(size=(n_src, 4))
+    sh = np.zeros((n_src, 16, 3), np.float32)
+    sh[:, 0] = (d + 1.5) / 3.0
+    raw = {"means3d": d.astype(np.float32), "sh_dc": sh[:, :1], "sh_rest": sh[:, 1:],
+           "scales_log": np.log(rng.uniform(0.02, 0.05, (n_src, 3))).astype(np.float32),
+           "quats_raw": (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32),
+           "opacities_raw": rng.uniform(0.5, 3.0, n_src).astype(np.float32),
+           "mask": np.ones(n_src, np.float32)}
+    gen = torch.Generator().manual_seed(4)
+    draws = (torch.rand(n, generator=gen), torch.rand((n, 6), generator=gen))
+    return v.float().numpy(), f.numpy(), raw, draws
+
+
+def _init_frosting(dev, inputs, n=20_000):
+    v, f, raw, (u_cell, u_bary) = inputs
+    gauss = gauss_lib.params_from_numpy(raw, device=dev)
+    means, scales, quats, opac, _sh = gauss_lib.activate(gauss)
+    return frosting_lib.init_frosting(
+        v, f, means, scales, quats, opac, gauss,
+        frosting_lib.FrostingConfig(n_gaussians=n, knn_k=8), 3.5,
+        u_cell=u_cell.to(dev), u_bary=u_bary.to(dev))
+
+
+def test_init_frosting_on_the_card(cuda):
+    """Two calls on the card with the same draws are bitwise equal; against
+    the CPU, cell_idx equal on all but 0.1% of the Gaussians (the cumsum of
+    the volumes rounds in another order), the offsets and bary logits to
+    1e-5 where the cells agree. The scales come from each centre's 3
+    nearest centres: they are held to 1e-5 where the cell and those 3
+    neighbours' cells agree (a Gaussian in another cell moves, and changes
+    its neighbours' scales), the SH (from the nearest source Gaussian)
+    where the cell agrees, both on all but 0.1% (a near tie among centres
+    that differ in their last bits may pick another neighbour)."""
+    inputs = _frosting_inputs()
+    (pa, ma), (pb, mb) = _init_frosting(cuda, inputs), _init_frosting(cuda, inputs)
+    pc, mc = _init_frosting("cpu", inputs)
+    for name in ("faces", "cell_idx", "cell_bounds"):
+        assert torch.equal(getattr(ma, name), getattr(mb, name)), name
+    for name, a in frosting_trainer.param_groups(pa).items():
+        if not name.startswith("bg_"):
+            assert torch.equal(a, getattr(pb, name)), name
+    same = (ma.cell_idx.cpu() == mc.cell_idx)
+    assert same.float().mean().item() >= 0.999
+    for name in ("inner_dist", "outer_dist"):
+        assert (getattr(pa, name).cpu() - getattr(pc, name)).abs().max().item() <= 1e-5, name
+    with torch.no_grad():
+        centres = frosting_lib.to_gaussians(pc, mc)[0]
+    nbrs, _ = knn_lib.knn(centres, k=3)
+    settled = same & same[nbrs].all(dim=1)
+    assert settled.float().mean().item() >= 0.99
+    for name, rows, share in (("bary_logits", same, 0.0), ("scales_log", settled, 1e-3),
+                              ("sh_dc", same, 1e-3), ("sh_rest", same, 1e-3)):
+        want = getattr(pc, name)[rows]
+        err = (getattr(pa, name).cpu()[rows] - want).abs().flatten(1).amax(1)
+        off = err > 1e-5 * max(1.0, want.abs().max().item())
+        assert off.float().mean().item() <= share, (name, int(off.sum()))
+
+
+def test_corner_blend_backward_on_the_card(cuda):
+    """CornerBlend's backward (a segment sum over the sorted cells) is
+    bitwise equal over two calls on the card, and agrees with autograd
+    through the plain gather + weighted sum to 1e-5 of each output's
+    largest magnitude."""
+    v, f, _raw, _draws = _frosting_inputs()
+    rng = np.random.default_rng(5)
+    n = 500_000
+    cell_idx = torch.from_numpy(np.sort(rng.integers(0, len(f), n))).to(cuda)
+    bounds = torch.searchsorted(cell_idx, torch.arange(len(f) + 1, device=cuda))
+    corners = torch.from_numpy(v[f]).to(cuda).repeat(1, 2, 1)
+    corners[:, 3:] *= 1.05
+    logits = torch.from_numpy(rng.normal(size=(n, 6)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
+
+    def grads(plain):
+        w = torch.softmax(logits, -1).requires_grad_(True)
+        c = corners.clone().requires_grad_(True)
+        if plain:
+            m = torch.sum(w[..., None] * c[cell_idx], dim=1)
+        else:
+            m = frosting_lib.CornerBlend.apply(w, c, cell_idx, bounds)
+        return torch.autograd.grad(m, [w, c], g)
+
+    first, second, plain = grads(False), grads(False), grads(True)
+    for a, b, p in zip(first, second, plain):
+        assert torch.equal(a, b)
+        scale = p.abs().max().clamp_min(1e-30)
+        assert ((a - p).abs() / scale).max().item() <= 1e-5
+
+
+def test_one_frosting_step_on_the_card(cuda):
+    """One refinement step (shell regulariser on) from the same initialised
+    model on the card and on the CPU: B1 and B2 launched once, the loss to
+    1e-5, and the parameters under the rule of test_one_sugar_step_on_the_card
+    (all but 1% of each group to 1e-5 + 1e-4 relative, none past two
+    learning rates)."""
+    inputs = _frosting_inputs()
+    p0, m0 = _init_frosting("cpu", inputs)
+    rcfg = RasterConfig(width=160, height=120, max_instances=1 << 20)
+    gt = torch.rand((3, 120, 160), generator=torch.Generator().manual_seed(0))
+    cfg = frosting_trainer.FrostingTrainConfig(regularize_shell=True)
+    nc = torch.from_numpy(mesh_ops.adjacent_face_pairs(m0.faces.numpy()))
+    results = []
+    for dev in ("cpu", cuda):
+        p = frosting_trainer.with_groups(p0, {k: t.to(dev, copy=True) for k, t in
+                                              frosting_trainer.param_groups(p0).items()})
+        m = frosting_lib.make_meta(m0.faces, m0.cell_idx, m0.cell_bounds,
+                                   n_verts=p.shell_verts.shape[0], device=dev)
+        opt = frosting_trainer.make_frosting_optimizer(cfg, 3.5, background=p.bg is not None)
+        state = opt.init(frosting_trainer.param_groups(p))
+        cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=dev)
+        launches = (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
+        out = frosting_trainer.train_step(p, state, m, cam, gt.to(dev),
+                                          torch.ones(p.bary_logits.shape[0], device=dev), opt,
+                                          rcfg, cfg, 3, nc.to(dev))
+        if dev != "cpu":
+            assert (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches) == (
+                launches[0] + 1, launches[1] + 1)
+        results.append((float(out["loss"]), frosting_trainer.param_groups(p), opt))
+    (l_cpu, g_cpu, opt), (l_gpu, g_gpu, _) = results
+    assert np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    lrs = {"bary_logits": 5e-3, "sh_dc": 2.5e-3, "sh_rest": 2.5e-3 / 20,
+           "opacities_raw": 0.05, "scales_log": 5e-3, "quats_raw": 1e-3}
+    for name in opt.groups:
+        got, want = g_gpu[name].cpu(), g_cpu[name]
+        err = (got - want).abs()
+        off = err > 1e-5 + 1e-4 * want.abs()
+        assert off.float().mean().item() <= 0.01, (name, int(off.sum()))
+        assert err.max().item() <= 2 * lrs[name] + 1e-6, (name, err.max().item())

@@ -8,7 +8,6 @@ import dataclasses
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from frosting_tpu import stages_cli as jax_cli
@@ -43,7 +42,8 @@ def _common(scene_dir, out):
 
 def test_load_scene_then_train_gs_train_sugar_render_on_the_cpu(tmp_path):
     """_load_scene equal to the JAX package's; then the three commands in
-    a row, each artifact loading back; render refuses a frosting model."""
+    a row, each artifact loading back (render of a frosting model:
+    tests/test_torch_frosting_trainer.py)."""
     scene_dir = _write_scene(str(tmp_path / "scene"))
     argv = ["render", *_common(scene_dir, str(tmp_path)), "--eval"]
     scene, cams, gt, rcfg = stages_cli._load_scene(
@@ -93,8 +93,3 @@ def test_load_scene_then_train_gs_train_sugar_render_on_the_cpu(tmp_path):
     got, mode = image_io.read_image(os.path.join(out, "renders", "train_00003.png"))
     assert mode == "RGB"
     np.testing.assert_array_equal(got, (img.transpose(1, 2, 0) * 255).astype(np.uint8))
-
-    # the frosting model's branch of render is not ported: it raises
-    open(os.path.join(out, "frosting.npz"), "wb").close()
-    with pytest.raises(NotImplementedError):
-        stages_cli.main(["render", *common])
