@@ -59,6 +59,10 @@ Phases (any failure raises and exits nonzero):
      phase and method part by part are timed, and B1 and B2 are held
      against their plain versions on a dn_consistency depth render's
      inputs, with the transmittance cotangent that depth / acc gives.
+     These stage 1-2 commands and timings run in a thread beside the first
+     stage-3 run's host QEM (below), once the ablation runs have ended,
+     in a directory of their own; their launches are the counts' rise over
+     that thread's run, in which nothing else launches B1 or B2.
      Stage 3 on the same scene (phase_extract): 1M Gaussians on the unit
      sphere as sugar.ply, stages_cli extract-shell --both-poly at the
      defaults (B1 once per view; both meshes within their vertex budgets,
@@ -85,10 +89,27 @@ Phases (any failure raises and exits nonzero):
      equal to the in-process render); init's and a refinement step's parts
      timed, full and culled (at the derived capacity), and B1 and B2 held
      against their plain versions on both views' blend inputs, B2 with the
-     loss's cotangent.
-The four main paths (4, 5, 7 and 8) reset the kernels' launch counts just
-before and read them just after; stage 3's extract-shell and each
-train-frosting are read on their own. The line before the last is the JSON
+     loss's cotangent; two learned-shell steps from one state bitwise
+     equal (and, in the stages timings, two sdf draws with one seed).
+     Stage 6 and editing (phase_texture, phase_refined_sugar,
+     phase_blender), on the frosting phase's scene and artifacts:
+     stages_cli extract-texture at 1024^2 (B1 once per view; a second run's
+     mesh.png byte for byte the first's; the OBJ read back; a known-answer
+     bake of the sphere's position colours), train-refined-sugar on stage
+     3's 200k-vertex mesh at 6 Gaussians per face, 100 iterations (B1 = B2
+     = iterations; the npz and PLY read back; PSNR up by a margin; a step
+     part by part, B1 and B2 held on its inputs, B2 against float64), and
+     blender_cli on a 1M-vertex, two-bone package over 4 frames, complex
+     adaptation with occlusion culling and simple adaptation (B1 once per
+     frame; frame 0 against the in-process render; adaptation, SVD and
+     render timed per frame).
+The main paths 4, 5 and 7 reset the kernels' launch counts just before
+and read them just after; each train-frosting, extract-texture,
+train-refined-sugar and blender_cli run is read on its own in the same
+way. The stage 1-2 commands of path 8 run beside stage 3's host QEM, so
+theirs are the counts' rise over their run, and the first extract-shell
+run's are the counts at the start of its QEM (it launches B1 only before
+it), checked against the counts at its end. The line before the last is the JSON
 kernels record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -143,14 +164,25 @@ from frosting_tpu_torch.raster.render import (
     count_instances,
     sum_rows_by_gaussian,
 )
-from frosting_tpu_torch import stages_cli
+from frosting_tpu_torch import blender_cli, stages_cli
+from frosting_tpu_torch import pipeline as pipeline_lib
+from frosting_tpu_torch.models import editing as editing_lib
 from frosting_tpu_torch.models import frosting as frosting_lib
+from frosting_tpu_torch.models import mesh_bound as mesh_bound_lib
 from frosting_tpu_torch.models import sugar as sugar_lib
+from frosting_tpu_torch.ops import mesh as mesh_ops
+from frosting_tpu_torch.ops import mesh_raster
 from frosting_tpu_torch.ops.ssim import l1_loss, psnr, ssim
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import adversarial_blend_inputs
-from frosting_tpu_torch.train import checkpoint, frosting_trainer, gs_trainer, sugar_trainer
+from frosting_tpu_torch.train import (
+    checkpoint,
+    frosting_trainer,
+    gs_trainer,
+    refined_sugar,
+    sugar_trainer,
+)
 from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import image as image_io
 from frosting_tpu_torch.utils import ply as ply_io
@@ -262,11 +294,36 @@ FROSTING_N = 2_000_000  # train-frosting's default --gaussians
 FROSTING_ITERS, FROSTING_CULLED_ITERS = 100, 20
 FROSTING_PSNR_GAIN = 1.0  # dB; 3.4 measured on a UV-sphere shell
 FROSTING_STEP_REPS = 5
+# Stage 6 and editing (phase_texture, phase_refined_sugar, phase_blender),
+# on the frosting phase's scene and artifacts.
+TEXTURE_SIZE = 1024  # extract-texture's default
+# mean |seen texel - the position colours of its pixels' surface points,
+# averaged as the bake averages them but computed without extract/texture.py|
+# (texture_known_answer): 0.0039 measured against a bake of those colours
+# through extract/texture.py (NVIDIA H100 80GB HBM3); the bound leaves 5x that and
+# lies under a texture of one colour (~0.047) or shuffled (~0.063), which
+# the phase computes and requires past it. The independent texel counts
+# must equal the command's on all but the texels a float32 UV moves across
+# a texel edge (~6 pixels a texel, ~1e-4 of a texel's width each).
+TEXTURE_MAE = 0.02
+TEXTURE_COUNTS_EQUAL = 0.99
+RS_ITERS, RS_PER_TRIANGLE = 100, 6  # SuGaR's low-poly setting: 6 per face
+RS_PSNR_GAIN = 0.5  # dB over the initialised mesh-bound model, 8 views
+BLENDER_FRAMES = 4
+BLENDER_MAX_DEG = 30.0  # bone "bend" turns the upper hemisphere up to this
+BLENDER_BAND = 0.2  # its weight ramps over |z| < BLENDER_BAND
+BLENDER_EYE = (0.9, -3.2, 1.1)  # the static camera, looking at the origin
 DEV = "cuda"
+T_START = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(label):
+    """One line of the script's timeline: seconds since the script began."""
+    log(f"[{time.perf_counter() - T_START:7.1f} s] {label}")
 
 
 def raw_params(arrays):
@@ -369,7 +426,8 @@ def compare_backward(label, fields, binned, cfg, plain_chunk=None, g=None):
     return max_err
 
 
-def compare_backward_float64(label, fields, binned, cfg, g, plain_chunk=64):
+def compare_backward_float64(label, fields, binned, cfg, g, plain_chunk=64,
+                             vs_plain=(DEPTH_VS_PLAIN_OFF_SHARE, DEPTH_VS_PLAIN_MAX_NORM)):
     """B2 on inputs whose colours leave [0, 1] (a depth render's: ~2.5-4.5),
     held with the plain float32 version against the plain version in
     float64. The suffix trick's dalpha = u T - gS / (1 - alpha) subtracts
@@ -380,8 +438,11 @@ def compare_backward_float64(label, fields, binned, cfg, g, plain_chunk=64):
     DEPTH_ERR_FACTOR times the plain float32 version's (or the count
     allowed above), and so may its largest normalised error; against the
     plain float32 version, DEPTH_VS_PLAIN_OFF_SHARE of the values may be
-    off, by at most DEPTH_VS_PLAIN_MAX_NORM. Returns the kernel's max abs
-    error against float64."""
+    off, by at most DEPTH_VS_PLAIN_MAX_NORM (vs_plain: that pair; None on
+    inputs whose conics are near singular, flat mesh-bound Gaussians seen
+    edge-on, where both float32 walks round apart and only their accuracy
+    against float64 is held). Returns the kernel's max abs error against
+    float64 and the counts."""
     out = blend_cuda.blend_forward(fields, binned, cfg)
     rows = backward_twice(label, fields, binned, cfg, out, g)
     plain_cfg = dataclasses.replace(cfg, chunk=plain_chunk)
@@ -400,7 +461,7 @@ def compare_backward_float64(label, fields, binned, cfg, g, plain_chunk=64):
     allowed = max(DEPTH_ERR_FACTOR * p_off, BWD_OFF_SHARE * rows.numel(), BWD_OFF_MIN)
     if k_off > allowed or k_norm > DEPTH_ERR_FACTOR * max(p_norm, ATOL):
         raise AssertionError(f"{label}: backward kernel less accurate than the plain version")
-    if o_off > DEPTH_VS_PLAIN_OFF_SHARE * rows.numel() or o_norm > DEPTH_VS_PLAIN_MAX_NORM:
+    if vs_plain is not None and (o_off > vs_plain[0] * rows.numel() or o_norm > vs_plain[1]):
         raise AssertionError(f"{label}: backward kernel disagrees with the plain version")
     return k_err, {"values": rows.numel(), "kernel_off_tol": k_off,
                    "kernel_max_normalised_err": k_norm, "plain_f32_off_tol": p_off,
@@ -975,18 +1036,23 @@ def host_ms(fn, reps):
 
 
 def phase_stages(raw, model):
-    """The stages main path: a COLMAP scene of the 1M model written to disk
-    and driven through stages_cli in process (train-gs, render, train-sugar
-    for each method), then its timings and the depth-render check of B1
-    and B2, then stage 3 (phase_extract) and stages 4-5 (phase_frosting).
-    Returns (launches per kernel of the stage 1-2 commands, of the first
-    extract-shell, of each train-frosting, timings)."""
+    """The stages main path: a COLMAP scene of the 1M model written to disk;
+    stage 3 (phase_extract) on it, and beside that run's host QEM the
+    stage 1-2 commands through stages_cli in process (train-gs, render,
+    train-sugar for each method, in a directory of their own), then their
+    timings and the depth-render check of B1 and B2; then stages 4-5
+    (phase_frosting), stage 6 and editing. Returns (launches per kernel of
+    the stage 1-2 commands, of the first extract-shell, of each later
+    command, timings)."""
     cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
                         max_instances=STAGE_MAX_INSTANCES)
     timings = {}
     with tempfile.TemporaryDirectory() as tmp:
         scene_dir, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+        out_gs = os.path.join(tmp, "stages")
+        for d in (out, out_gs):
+            os.makedirs(d)
         t0 = time.time()
         paths = synthetic.write_colmap_scene(scene_dir, model, cams, rcfg)
         log(f"stages: COLMAP scene of {len(cams)} PNG views at {MAIN_W}x{MAIN_H} and "
@@ -994,7 +1060,8 @@ def phase_stages(raw, model):
         timings["png_decode_1080p_ms"] = host_ms(lambda: image_io.read_image(paths[0]), 5)
         common = ["-s", scene_dir, "-o", out, "--max-instances", str(STAGE_MAX_INSTANCES),
                   "--device", DEV]
-        args = stages_cli.build_parser().parse_args(["render", *common])
+        common_gs = [out_gs if a == out else a for a in common]
+        args = stages_cli.build_parser().parse_args(["render", *common_gs])
         t0 = time.perf_counter()
         scene, scams, gt, srcfg = stages_cli._load_scene(args)
         timings["scene_load_ms"] = (time.perf_counter() - t0) * 1e3
@@ -1009,75 +1076,104 @@ def phase_stages(raw, model):
             f"{timings['scene_load_ms']:.0f} ms; GT view 0 equals the written render")
         del gt
 
-        blend_cuda.blend_forward.launches = 0
-        blend_cuda.blend_backward.launches = 0
-        t0 = time.perf_counter()
-        hist = stages_cli.main(["train-gs", *common, "--iterations", str(STAGE_GS_ITERS),
-                                "--capacity", str(TRAIN_CAPACITY)])
-        timings["train_gs_s"] = time.perf_counter() - t0
-        if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
-            raise AssertionError(f"train-gs: a non-finite loss or an overflow: {hist}")
-        t0 = time.perf_counter()
-        stages_cli.main(["render", *common])
-        torch.cuda.synchronize()
-        timings["render_command_s"] = time.perf_counter() - t0
-        # train-gs's model, checked against the render command's PNG once
-        # the commands' launches are read
-        live = gauss_lib.activate(stages_cli.load_live_gaussians(
-            os.path.join(out, "gs.ply"), device=DEV))
-        log(f"stages: train-gs {timings['train_gs_s']:.1f} s ({STAGE_GS_ITERS} iterations, "
-            f"scene load and create_from_pcd included), render command "
-            f"{timings['render_command_s']:.1f} s for {len(scams)} views")
-
-        gauss_lib.save_ply(gauss_lib.params_from_numpy(raw, device="cpu"),
-                           os.path.join(out, "gs.ply"))
-        for method in SUGAR_METHODS:
+        def stages_1_2():
+            """train-gs, render and train-sugar (each method) in out_gs,
+            checked, then the stages timings. Run beside stage 3's host
+            QEM (phase_extract), where it is the only work launching B1
+            and B2: its launches are the counts' rise over the run."""
+            before = (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
             t0 = time.perf_counter()
-            hist = stages_cli.main([
-                "train-sugar", *common, "-r", method, "--start-iteration", str(SUGAR_FROM),
-                "--iterations", str(SUGAR_TO), "--capacity", str(TRAIN_CAPACITY)])
-            timings[f"train_sugar_{method}_s"] = time.perf_counter() - t0
-            first, last = hist[0], hist[-1]
-            log(f"stages: train-sugar -r {method}: {timings[f'train_sugar_{method}_s']:.1f} s; "
-                + "; ".join(f"it {h['iter']} [{h['phase']}] loss {h['loss']:.4f} psnr "
-                            f"{h['psnr']:.2f} n {h['n_active']}" for h in hist)
-                + f"; PSNR margin {SUGAR_PSNR_MARGIN} dB")
+            hist = stages_cli.main(["train-gs", *common_gs, "--iterations",
+                                    str(STAGE_GS_ITERS), "--capacity", str(TRAIN_CAPACITY)])
+            timings["train_gs_s"] = time.perf_counter() - t0
             if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
-                raise AssertionError(f"train-sugar {method}: a non-finite loss or an overflow")
-            if not last["psnr"] >= first["psnr"] - SUGAR_PSNR_MARGIN:
-                raise AssertionError(f"train-sugar {method}: PSNR fell past the margin")
-            keep = first["n_active"] / MAIN_N
-            if not (first["iter"] == 9000 and PRUNE_KEEP[0] <= keep <= PRUNE_KEEP[1]):
-                raise AssertionError(f"train-sugar {method}: the prune kept {keep:.3f}")
-            back = gauss_lib.load_ply(os.path.join(out, "sugar.ply"), device="cpu")
-            if back.capacity != last["n_active"] or not torch.isfinite(back.means3d).all():
-                raise AssertionError(f"train-sugar {method}: sugar.ply does not load back")
-        torch.cuda.synchronize()
-        launches = {"blend_forward": blend_cuda.blend_forward.launches,
-                    "blend_backward": blend_cuda.blend_backward.launches}
-        log(f"stages path launches {launches}")
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"the stages path did not launch {name}")
+                raise AssertionError(f"train-gs: a non-finite loss or an overflow: {hist}")
+            t0 = time.perf_counter()
+            stages_cli.main(["render", *common_gs])
+            torch.cuda.synchronize()
+            timings["render_command_s"] = time.perf_counter() - t0
+            # train-gs's model, checked against the render command's PNG once
+            # the commands' launches are read
+            live = gauss_lib.activate(stages_cli.load_live_gaussians(
+                os.path.join(out_gs, "gs.ply"), device=DEV))
+            log(f"stages: train-gs {timings['train_gs_s']:.1f} s ({STAGE_GS_ITERS} iterations, "
+                f"scene load and create_from_pcd included), render command "
+                f"{timings['render_command_s']:.1f} s for {len(scams)} views")
 
-        with torch.inference_mode():
-            img = np.clip(render(*live, scams[0], srcfg).image.cpu().numpy(), 0, 1)
-        got, mode = image_io.read_image(os.path.join(out, "renders", "train_00000.png"))
-        if not (mode == "RGB" and np.array_equal(got, (img.transpose(1, 2, 0) * 255).astype(np.uint8))):
-            raise AssertionError("render: the PNG differs from the render it came from")
-        timings["render_view_ms"] = host_ms(lambda: viewer.render_png(live, scams[0], srcfg), 3)
-        del live
-        log(f"stages: render + PNG of one view {timings['render_view_ms']:.1f} ms (host "
-            "clock, median of 3); renders/train_00000.png decodes to the render")
-        gt0 = torch.from_numpy(np.asarray(scene.train_cameras[0].image(), np.float32))
-        timings.update(stages_timings(os.path.join(out, "gs.ply"), scene, gt0.to(DEV)))
-        del scene, gt0
+            gauss_lib.save_ply(gauss_lib.params_from_numpy(raw, device="cpu"),
+                               os.path.join(out_gs, "gs.ply"))
+            for method in SUGAR_METHODS:
+                t0 = time.perf_counter()
+                hist = stages_cli.main([
+                    "train-sugar", *common_gs, "-r", method, "--start-iteration",
+                    str(SUGAR_FROM), "--iterations", str(SUGAR_TO), "--capacity",
+                    str(TRAIN_CAPACITY)])
+                timings[f"train_sugar_{method}_s"] = time.perf_counter() - t0
+                first, last = hist[0], hist[-1]
+                secs = timings[f"train_sugar_{method}_s"]
+                log(f"stages: train-sugar -r {method}: {secs:.1f} s; "
+                    + "; ".join(f"it {h['iter']} [{h['phase']}] loss {h['loss']:.4f} psnr "
+                                f"{h['psnr']:.2f} n {h['n_active']}" for h in hist)
+                    + f"; PSNR margin {SUGAR_PSNR_MARGIN} dB")
+                if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
+                    raise AssertionError(
+                        f"train-sugar {method}: a non-finite loss or an overflow")
+                if not last["psnr"] >= first["psnr"] - SUGAR_PSNR_MARGIN:
+                    raise AssertionError(f"train-sugar {method}: PSNR fell past the margin")
+                keep = first["n_active"] / MAIN_N
+                if not (first["iter"] == 9000 and PRUNE_KEEP[0] <= keep <= PRUNE_KEEP[1]):
+                    raise AssertionError(f"train-sugar {method}: the prune kept {keep:.3f}")
+                back = gauss_lib.load_ply(os.path.join(out_gs, "sugar.ply"), device="cpu")
+                if back.capacity != last["n_active"] or not torch.isfinite(back.means3d).all():
+                    raise AssertionError(f"train-sugar {method}: sugar.ply does not load back")
+            torch.cuda.synchronize()
+            launches = {"blend_forward": blend_cuda.blend_forward.launches - before[0],
+                        "blend_backward": blend_cuda.blend_backward.launches - before[1]}
+            log(f"stages path launches {launches}")
+            for name, n in launches.items():
+                if n <= 0:
+                    raise AssertionError(f"the stages path did not launch {name}")
+
+            with torch.inference_mode():
+                img = np.clip(render(*live, scams[0], srcfg).image.cpu().numpy(), 0, 1)
+            got, mode = image_io.read_image(os.path.join(out_gs, "renders", "train_00000.png"))
+            png = (img.transpose(1, 2, 0) * 255).astype(np.uint8)
+            if not (mode == "RGB" and np.array_equal(got, png)):
+                raise AssertionError("render: the PNG differs from the render it came from")
+            timings["render_view_ms"] = host_ms(
+                lambda: viewer.render_png(live, scams[0], srcfg), 3)
+            del live
+            log(f"stages: render + PNG of one view {timings['render_view_ms']:.1f} ms (host "
+                "clock, median of 3); renders/train_00000.png decodes to the render")
+            gt0 = torch.from_numpy(np.asarray(scene.train_cameras[0].image(),
+                                              np.float32)).to(DEV)
+            timings.update(stages_timings(os.path.join(out_gs, "gs.ply"), scene, gt0))
+            return launches
+
         torch.cuda.empty_cache()
-        extract_launches, timings["extract_shell"] = phase_extract(
-            scene_dir, out, common, len(scams))
+        stamp("stage 3 (extract-shell), with stages 1-2 beside its host QEM")
+        extract_launches, timings["extract_shell"], launches = phase_extract(
+            scene_dir, out, common, len(scams), stages_1_2)
+        del scene
         torch.cuda.empty_cache()
+        stamp("stages 4-5 (train-frosting)")
         frosting_launches, timings["frosting"] = phase_frosting(
             tmp, os.path.join(out, "sugar.ply"), os.path.join(out, "shell_surface.ply"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        stamp("stage 6 (extract-texture)")
+        frosting_launches["texture"], timings["texture"] = phase_texture(tmp)
+        torch.cuda.empty_cache()
+        stamp("train-refined-sugar")
+        frosting_launches["refined_sugar"], timings["refined_sugar"] = phase_refined_sugar(
+            tmp, os.path.join(out, "sugar.ply"), os.path.join(out, "shell_lowpoly.ply"))
+        torch.cuda.empty_cache()
+        stamp("blender_cli")
+        blender, timings["blender"] = phase_blender(tmp)
+        frosting_launches.update({f"blender_{k}": v for k, v in blender.items()})
+        timings["stage6_and_editing_s"] = time.perf_counter() - t0
+        log(f"extract-texture, train-refined-sugar and blender_cli phases: "
+            f"{timings['stage6_and_editing_s']:.1f} s")
     return launches, extract_launches, frosting_launches, timings
 
 
@@ -1103,7 +1199,7 @@ def median_radius(path):
     return len(v), len(f), float(np.median(np.linalg.norm(v, axis=1)))
 
 
-def phase_extract(scene_dir, out, common, n_views):
+def phase_extract(scene_dir, out, common, n_views, beside_qem):
     """Stage 3 on the stages path's scene: the known-answer sphere as
     sugar.ply, then extract-shell --both-poly at full width in process (B1
     launched once per view, its parts' times, peak device memory, both
@@ -1119,9 +1215,15 @@ def phase_extract(scene_dir, out, common, n_views):
     QEM (its first call of meshclean.decimate), by when the second is in
     its own: their device parts (seconds) share no device time with the
     stage-3 runs' parts before QEM, and their host QEM runs beside the
-    others' (the start is logged). The surface method's shell.ply is kept
-    as shell_surface.ply for stages 4-5. Returns (launches of the first
-    command, results)."""
+    others' (the start is logged). beside_qem (work that needs nothing of
+    stage 3: the stage 1-2 commands and their timings) runs in a thread of
+    this process from the moment the ablation runs end, which is inside
+    the first run's host QEM, when the card is otherwise idle; the first
+    run launches B1 only before its QEM, so its launches are the counts at
+    the QEM's start, and the counts at its end must be those plus the
+    thread's own. The surface method's shell.ply is kept as
+    shell_surface.ply for stages 4-5. Returns (launches of the first
+    command, results, beside_qem's result)."""
     gauss_lib.save_ply(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device="cpu"),
                        os.path.join(out, "sugar.ply"))
     out_b = out + "_again"
@@ -1161,16 +1263,37 @@ def phase_extract(scene_dir, out, common, n_views):
     lock = threading.Lock()  # the first run calls decimate from a thread per budget
     decimate = meshclean.decimate
 
+    side = {}
+
+    def counts():
+        return (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
+
+    def run_beside_qem():
+        try:
+            procs["ablations"].wait()
+            side["start_s"] = time.perf_counter() - t_first
+            before = counts()
+            side["result"] = beside_qem()
+            torch.cuda.synchronize()
+            side["launches"] = tuple(a - b for a, b in zip(counts(), before))
+            side["end_s"] = time.perf_counter() - t_first
+        except BaseException as e:  # re-raised by the main thread
+            side["error"] = e
+
     def start_ablations_then_decimate(*args, **kwargs):
         """The first run's QEM: its device parts before QEM are done, so
-        the ablation runs start here."""
+        the ablation runs start here, and then the work beside QEM."""
         with lock:
             if "ablations" not in procs:
                 results["ablations_start_s"] = time.perf_counter() - t_first
+                results["launches_before_qem"] = counts()
+                results["peak_gib_before_qem"] = torch.cuda.max_memory_allocated() / 2**30
                 with open(ablation_log, "w") as fh:
                     procs["ablations"] = subprocess.Popen(
                         ablation_argv, cwd=root, stdout=fh, stderr=subprocess.STDOUT,
                         text=True)
+                side["thread"] = threading.Thread(target=run_beside_qem, daemon=True)
+                side["thread"].start()
         return decimate(*args, **kwargs)
 
     try:
@@ -1188,12 +1311,22 @@ def phase_extract(scene_dir, out, common, n_views):
         t_first = time.perf_counter()
         res = run("surface", ["--both-poly"])
         meshclean.decimate = decimate
+        if "thread" not in side:
+            raise AssertionError("the first extract-shell run never entered its QEM")
+        side["thread"].join()
+        if "error" in side:
+            raise side["error"]
         torch.cuda.synchronize()
-        launches = {"blend_forward": blend_cuda.blend_forward.launches,
-                    "blend_backward": blend_cuda.blend_backward.launches}
-        log(f"extract-shell launches {launches}")
+        before_qem = results["launches_before_qem"]
+        launches = {"blend_forward": before_qem[0], "blend_backward": before_qem[1]}
+        log(f"extract-shell launches {launches} (all before its QEM); the work beside its QEM "
+            f"ran from {side['start_s']:.1f} s to {side['end_s']:.1f} s into the run and "
+            f"launched {side['launches']}; the run's peak device memory before its QEM "
+            f"{results['peak_gib_before_qem']:.2f} GiB")
         if launches != {"blend_forward": n_views, "blend_backward": 0}:
             raise AssertionError(f"extract-shell should launch B1 once per view: {launches}")
+        if tuple(a + b for a, b in zip(before_qem, side["launches"])) != counts():
+            raise AssertionError("extract-shell launched a kernel after its QEM began")
         for line in again.stdout:
             log(f"  [second run] {line.rstrip()}")
         if again.wait() != 0:
@@ -1249,7 +1382,7 @@ def phase_extract(scene_dir, out, common, n_views):
         if not (0 < nv <= SHELL_TARGETS[0] and band[0] <= r <= band[1]):
             raise AssertionError(f"--method {method}: {nv} vertices, median radius {r}")
         results[method]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
-    return launches, results
+    return launches, results, side["result"]
 
 
 def _counted(argv):
@@ -1272,10 +1405,10 @@ def _groups_equal(a, b):
     return ga.keys() == gb.keys() and all(torch.equal(ga[k], gb[k]) for k in ga)
 
 
-def _mean_psnr(params, meta, cams, gt, rcfg):
-    """Mean PSNR of the model's renders of the views against gt [n, 3, H, W]."""
+def _mean_psnr(model, cams, gt, rcfg):
+    """Mean PSNR (and each view's) of an activated model's renders against
+    gt [n, 3, H, W]."""
     with torch.inference_mode():
-        model = frosting_lib.to_gaussians(params, meta)
         vals = [float(psnr(torch.clamp(render(*model, c, rcfg).image, 0.0, 1.0),
                            torch.from_numpy(g).to(DEV))) for c, g in zip(cams, gt)]
     return float(np.mean(vals)), vals
@@ -1358,8 +1491,9 @@ def phase_frosting(tmp, sugar_ply, shell_ply):
         raise AssertionError("the frosting layer does not wrap the shell")
     args = stages_cli.build_parser().parse_args(["render", *common(outs[0])])
     _scene, scams, gt, _rcfg = stages_cli._load_scene(args)
-    before, before_v = _mean_psnr(init_p, meta, scams, gt, rcfg)
-    after, after_v = _mean_psnr(trained, meta, scams, gt, rcfg)
+    with torch.inference_mode():
+        before, before_v = _mean_psnr(frosting_lib.to_gaussians(init_p, meta), scams, gt, rcfg)
+        after, after_v = _mean_psnr(frosting_lib.to_gaussians(trained, meta), scams, gt, rcfg)
     results["psnr_init"], results["psnr_refined"] = before_v, after_v
     log(f"mean PSNR over the {len(scams)} views: init {before:.3f} dB, refined {after:.3f} dB "
         f"(gain {after - before:.3f}, required {FROSTING_PSNR_GAIN}); per view "
@@ -1406,6 +1540,8 @@ def phase_frosting(tmp, sugar_ply, shell_ply):
         f"largest offset change {moved}")
     if not all(0.0 < x <= 0.5 for x in shares):
         raise AssertionError("a view's visible share lies outside (0, 0.5]")
+    results["learned_shell_bitwise"] = hold_learned_shell(trained2, meta2, scams[0], gt[0],
+                                                          rcfg)
     del res2, init2, meta2, trained2
 
     stages_cli.main(["render", *common(outs[0])])
@@ -1422,6 +1558,517 @@ def phase_frosting(tmp, sugar_ply, shell_ply):
         trained, meta, scams[0], gt[0], rcfg,
         dataclasses.replace(rcfg, max_instances=culled_cap), vis[0])
     return launches, results
+
+
+def obj_counts(path):
+    """(v, vt, f line counts, the v lines' values [V, 3]) of an OBJ file."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    counts = tuple(data.count(b"\n" + k) for k in (b"v ", b"vt ", b"f "))
+    start = data.index(b"\nv ")
+    end = data.index(b"\nvt ")
+    rows = data[start:end].replace(b"\nv ", b"\n").split()
+    return counts, np.array(rows, dtype=np.float64).reshape(-1, 3)
+
+
+def atlas_corners(n_faces):
+    """[F, 3, 2] float64 on the card: each face's corner UVs in
+    extract-texture's atlas, written out from its definition (JAX's
+    uv_atlas, after the reference's texture.py:35-72), not from
+    extract/texture.py: B = ceil(sqrt((F + 1) // 2)) square blocks a side, two
+    faces a block (face f in block f // 2, row-major from u = v = 0), the
+    even face the lower-left triangle (0, 0), (1, 0), (0, 1) and the odd
+    one the upper-right (1, 1), (0, 1), (1, 0), each shrunk towards its
+    right-angle corner to leave 0.12 of the block at the block's edges and
+    0.24 across its diagonal."""
+    b = math.ceil(math.sqrt((n_faces + 1) // 2))
+    f = torch.arange(n_faces, device=DEV, dtype=torch.float64)
+    block = torch.div(f, 2, rounding_mode="floor")
+    origin = torch.stack([block % b, torch.div(block, b, rounding_mode="floor")], 1) / b
+    lower = torch.tensor([[0.12, 0.12], [0.76, 0.12], [0.12, 0.76]], device=DEV,
+                         dtype=torch.float64)
+    shape = torch.where((f % 2 == 0)[:, None, None], lower, 1.0 - lower)
+    return origin[:, None, :] + shape / b
+
+
+def texture_known_answer(verts, faces, scene_dir, out, tex, counts):
+    """The known answer of extract-texture on the coloured sphere, computed
+    without extract/texture.py: each covered pixel of each view (the mesh
+    rasterizer's face and barycentrics) carries the position colour of its
+    surface point on the shell (sphere_raw's SH DC (p / |p| + 1.5) / 3 as
+    RGB: 0.5 + C0 * DC); its UV comes from atlas_corners, its texel from
+    the UV (column u * S, row (1 - v) * S, clamped), and each texel's
+    colours are averaged by torch.bincount in float64. Against the
+    command's mesh.png (tex, uint8) and texel counts: the share of texels
+    whose counts agree, and the mean absolute error over the texels both
+    saw; beside it, as controls the check must be able to fail on, the
+    error of a texture of one colour (the seen texels' mean) and of the
+    seen texels shuffled (seeded); and, logged only, the error of each seen
+    texel's centre mapped back through the atlas to one face and point
+    (a texel spans ~1.02 blocks a side: it holds pieces of up to eight
+    faces, which need not be neighbours on the mesh)."""
+    s = TEXTURE_SIZE
+    c0 = 0.28209479177387814
+    cams = stages_cli._load_scene(stages_cli.build_parser().parse_args(
+        ["render", "-s", scene_dir, "-o", out, "--device", DEV]))[1]
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+    uv_c = atlas_corners(faces.shape[0])
+    v64, f64 = verts.double(), faces.long()
+    sums = torch.zeros((3, s * s), device=DEV, dtype=torch.float64)
+    cnt = torch.zeros(s * s, device=DEV, dtype=torch.float64)
+    with torch.inference_mode():
+        for cam in cams:
+            fr = mesh_raster.rasterize_mesh(verts, faces, cam, rcfg)
+            pf = fr.pix_to_face.reshape(-1)
+            hit = pf >= 0
+            face, bary = pf[hit].long(), fr.bary.reshape(-1, 3)[hit].double()
+            p = torch.einsum("nk,nkc->nc", bary, v64[f64[face]])
+            col = 0.5 + c0 * (p / p.norm(dim=1, keepdim=True) + 1.5) / 3.0
+            uv = torch.einsum("nk,nkc->nc", bary, uv_c[face])
+            tx = (uv[:, 0] * s).clamp(0, s - 1).long()
+            ty = ((1.0 - uv[:, 1]) * s).clamp(0, s - 1).long()
+            tid = ty * s + tx
+            cnt += torch.bincount(tid, minlength=s * s)
+            for c in range(3):
+                sums[c] += torch.bincount(tid, weights=col[:, c], minlength=s * s)
+    cnt = cnt.cpu().numpy()
+    want = (sums.cpu().numpy() / np.maximum(cnt, 1.0)).T.reshape(s, s, 3)
+    cnt = cnt.reshape(s, s)
+    seen = counts > 0
+    both = seen & (cnt > 0)
+    got = tex.astype(np.float64) / 255.0
+
+    def mae(texels):
+        return float(np.abs(texels - want[both]).mean())
+
+    shuffled = got[both][np.random.default_rng(0).permutation(int(both.sum()))]
+    # each seen texel's centre back through the atlas: block, half, then
+    # the barycentrics of the centre in that face's (shrunk) triangle
+    b = math.ceil(math.sqrt((faces.shape[0] + 1) // 2))
+    ys, xs = np.nonzero(both)
+    u, v = (xs + 0.5) / s * b, (1.0 - (ys + 0.5) / s) * b
+    bx, by = np.minimum(u.astype(int), b - 1), np.minimum(v.astype(int), b - 1)
+    lu, lv = u - bx, v - by
+    upper = lu + lv > 1.0
+    lu, lv = np.where(upper, 1.0 - lu, lu), np.where(upper, 1.0 - lv, lv)
+    w = np.clip(np.stack([lu - 0.12, lv - 0.12], 1) / 0.64, 0.0, 1.0)
+    w = np.clip(np.concatenate([1.0 - w.sum(1, keepdims=True), w], 1), 0.0, 1.0)
+    w /= w.sum(1, keepdims=True)
+    face = np.minimum((by * b + bx) * 2 + upper, faces.shape[0] - 1)
+    tri = v64[f64[torch.from_numpy(face).to(DEV)]].cpu().numpy()
+    p = np.einsum("nk,nkc->nc", w, tri)
+    centre = 0.5 + c0 * (p / np.linalg.norm(p, axis=1, keepdims=True) + 1.5) / 3.0
+    return {"seen_share": float(seen.mean()), "mean_count": float(counts[seen].mean()),
+            "counts_equal_share": float((cnt == counts).mean()),
+            "known_answer_mae": mae(got[both]),
+            "constant_mae": mae(got[both].mean(axis=0)),
+            "shuffled_mae": mae(shuffled),
+            "texel_centre_mae": float(np.abs(got[both] - centre).mean())}
+
+
+def phase_texture(tmp):
+    """Stage 6 on phase_frosting's frosting.npz (2M Gaussians on the 1M-vertex
+    extracted shell), in process: stages_cli extract-texture at
+    --texture-size 1024 (B1 launched exactly once per view), then again into
+    a second directory (mesh.png byte for byte the first's); the OBJ read
+    back with the shell's vertex and face counts and its vertices; the seen
+    texel share; the known answer (texture_known_answer): the scene is the
+    unit sphere coloured by position, so the seen texels lie within
+    TEXTURE_MAE (mean absolute error) of the position colours of their
+    pixels' surface points, averaged per texel without extract/texture.py, and a
+    texture of one colour or shuffled does not. Returns (launches of the
+    first command, results)."""
+    scene_dir = os.path.join(tmp, "frosting_scene")
+    outs = [os.path.join(tmp, "frosting"), os.path.join(tmp, "texture_again")]
+    os.makedirs(outs[1])
+    shutil.copy(os.path.join(outs[0], "frosting.npz"), outs[1])
+    results, runs = {}, []
+    for o in outs:
+        res, launches, secs, peak = _counted(
+            ["extract-texture", "-s", scene_dir, "-o", o, "--max-instances",
+             str(STAGE_MAX_INSTANCES), "--texture-size", str(TEXTURE_SIZE), "--device", DEV])
+        runs.append((res, launches, secs, peak))
+        log(f"extract-texture ({o}): {secs:.1f} s, peak {peak:.2f} GiB, launches {launches}, "
+            f"seen texels {res['seen_share']:.4f}; parts (ms): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+    res, launches, secs, peak = runs[0]
+    results.update(command_s=[r[2] for r in runs], peak_gib=peak, timings_ms=res["timings_ms"],
+                   timings_ms_again=runs[1][0]["timings_ms"], seen_share=res["seen_share"])
+    want = {"blend_forward": len(STAGE_ORBITS), "blend_backward": 0}
+    if launches != want or runs[1][1] != want:
+        raise AssertionError(f"extract-texture launched {launches} / {runs[1][1]}, not {want}")
+    with open(os.path.join(outs[0], "mesh.png"), "rb") as a, \
+            open(os.path.join(outs[1], "mesh.png"), "rb") as b:
+        same = a.read() == b.read()
+    log(f"extract-texture twice: mesh.png {'equal' if same else 'DIFFERS'} byte for byte")
+    if not same:
+        raise AssertionError("two texture bakes of one model differ")
+    params, meta = checkpoint.load_frosting(os.path.join(outs[0], "frosting.npz"), device="cpu")
+    verts, faces = params.shell_verts.numpy(), meta.faces.numpy()
+    t0 = time.perf_counter()
+    (nv, nvt, nf), v = obj_counts(os.path.join(outs[0], "mesh.obj"))
+    log(f"mesh.obj read back in {time.perf_counter() - t0:.1f} s: {nv} v, {nvt} vt, {nf} f "
+        f"(the shell: {len(verts)} vertices, {len(faces)} faces)")
+    if (nv, nvt, nf) != (len(verts), 3 * len(faces), len(faces)) or not np.abs(
+            v - verts).max() <= 5e-7 * max(1.0, np.abs(verts).max()):
+        raise AssertionError("mesh.obj does not load back to the shell")
+    tex, mode = image_io.read_image(os.path.join(outs[0], "mesh.png"))
+    if (mode, tex.shape) != ("RGB", (TEXTURE_SIZE, TEXTURE_SIZE, 3)):
+        raise AssertionError(f"mesh.png is {mode} {tex.shape}")
+    ka = texture_known_answer(params.shell_verts.to(DEV), meta.faces.to(DEV), scene_dir,
+                              outs[0], tex, res["texel_counts"])
+    results.update(ka)
+    log(f"seen texels {ka['seen_share']:.4f} of {TEXTURE_SIZE}^2 (mean count "
+        f"{ka['mean_count']:.2f}); the independent bake's texel counts equal the command's on "
+        f"{ka['counts_equal_share']:.5f} of the texels; mean absolute error of the seen texels "
+        f"against the position colours of their pixels' surface points: "
+        f"{ka['known_answer_mae']:.4f} (bound {TEXTURE_MAE}); the same error of the texture's "
+        f"mean colour everywhere {ka['constant_mae']:.4f}, of its seen texels shuffled "
+        f"{ka['shuffled_mae']:.4f}, of each texel's centre's own colour through the atlas "
+        f"{ka['texel_centre_mae']:.4f} (logged)")
+    if not (0.0 < ka["seen_share"] < 1.0 and ka["counts_equal_share"] >= TEXTURE_COUNTS_EQUAL
+            and ka["known_answer_mae"] <= TEXTURE_MAE
+            and min(ka["constant_mae"], ka["shuffled_mae"]) > TEXTURE_MAE):
+        raise AssertionError("the baked texture is not the sphere's position colour, or the "
+                             "check cannot tell a constant or shuffled texture from it")
+    return launches, results
+
+
+def refined_step_timings(params, meta, cam, gt, rcfg):
+    """A refined-SuGaR step at full width part by part (CUDA events, median
+    of FROSTING_STEP_REPS after a warm-up), cut where refined_sugar.train_step
+    passes from one part to the next; the whole train_step (median of 5);
+    then B1 and B2 held against their plain versions on the step's blend
+    inputs, B2 with the loss's cotangent and against float64 beside the
+    plain float32 walk. Returns (times, max abs errors)."""
+    cfg = refined_sugar.MeshBoundTrainConfig()
+    opt = refined_sugar.make_mesh_bound_optimizer(cfg, TRAIN_EXTENT)
+    state = opt.init(refined_sugar.param_groups(params))
+    gt = torch.from_numpy(gt).to(DEV)
+    bg = torch.zeros(3, device=DEV)
+    runs = []
+    for _ in range(FROSTING_STEP_REPS + 1):
+        groups = refined_sugar.param_groups(params)
+        leaves = {g: groups[g].detach().requires_grad_(True) for g in opt.groups}
+        p = dataclasses.replace(params, **leaves)
+        t = Timer()
+        t.mark("start")
+        act = mesh_bound_lib.activate_mesh_bound(p, meta)
+        t.mark("mesh-bound activation")
+        act_l = [a.detach().requires_grad_(True) for a in act]
+        proj = preprocess(*act_l, cam, rcfg, active_sh_degree=3)
+        fields = pack_fields(proj)
+        t.mark("preprocess")
+        binned = bin_gaussians(proj.rect, proj.depths, proj.valid, rcfg)
+        t.mark("binning")
+        o = blend_cuda.blend_forward(fields.detach(), binned, rcfg)
+        t.mark("blend_forward (B1)")
+        o_leaf = o.requires_grad_(True)
+        loss = refined_sugar.photometric(o_leaf[:3] + o_leaf[3][None] * bg[:, None, None], gt,
+                                         cfg)
+        (g_out,) = torch.autograd.grad(loss, o_leaf)
+        t.mark("loss + SSIM, forward and backward")
+        rows = blend_cuda.blend_backward(fields.detach(), binned, rcfg, o.detach(),
+                                         g_out.contiguous())
+        t.mark("blend_backward (B2)")
+        dfields = sum_rows_by_gaussian(rows, binned.inst_gauss, fields.shape[0])
+        t.mark("reduction (sorted segment sum)")
+        d_act = torch.autograd.grad(fields, act_l, dfields, allow_unused=True)
+        t.mark("preprocess backward")
+        used = [(a, d) for a, d in zip(act, d_act) if d is not None and a.requires_grad]
+        grads = torch.autograd.grad([a for a, _ in used], list(leaves.values()),
+                                    [d for _, d in used])
+        t.mark("activation backward")
+        opt.step(groups, dict(zip(leaves, grads)), state, torch.isfinite(loss.detach()))
+        t.mark("Adam")
+        runs.append(t.parts())
+    runs = runs[1:]
+    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    parts["sum of parts"] = sum(parts.values())
+    parts["instances"] = int(binned.num_instances)
+    parts["overflow"] = bool(binned.overflow)
+    parts["train_step"] = cuda_ms(lambda: refined_sugar.train_step(
+        params, state, meta, cam, gt, opt, rcfg, cfg), 5)
+    log(f"refined-SuGaR step at {MAIN_W}x{MAIN_H}, {params.opacities_raw.shape[0]} Gaussians: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f" ms ({1e3 / parts['train_step']:.2f} it/s)")
+    if parts["overflow"]:
+        raise AssertionError("the refined-SuGaR step overflowed its instance capacity")
+    held = "the refined-SuGaR step's blend inputs"
+    with torch.no_grad():
+        errs = {"blend_forward": compare(held, fields.detach(), binned, rcfg)}
+        errs["blend_backward"], parts["b2_against_float64"] = compare_backward_float64(
+            held, fields.detach(), binned, rcfg, g_out.contiguous(), vs_plain=None)
+    return parts, errs
+
+
+def phase_refined_sugar(tmp, sugar_ply, shell_lowpoly_ply):
+    """stages_cli train-refined-sugar in process on the frosting phase's
+    8-view scene, stage 3's 1M-Gaussian sphere as sugar.ply and its 200k-
+    vertex budget mesh (shell_lowpoly.ply) as shell.ply, at 6 Gaussians per
+    triangle for RS_ITERS iterations: B1 = B2 = iterations, no overflow,
+    every value finite, refined_sugar.npz loading back to the trained model
+    bitwise and refined_sugar.ply loading, the mean PSNR over the 8 views
+    RS_PSNR_GAIN above the initialised model's; then a step part by part,
+    and B1 and B2 held on its blend inputs. Returns (launches, results)."""
+    scene_dir = os.path.join(tmp, "frosting_scene")
+    out = os.path.join(tmp, "refined_sugar")
+    os.makedirs(out)
+    shutil.copy(sugar_ply, os.path.join(out, "sugar.ply"))
+    shutil.copy(shell_lowpoly_ply, os.path.join(out, "shell.ply"))
+    common = ["-s", scene_dir, "-o", out, "--max-instances", str(STAGE_MAX_INSTANCES),
+              "--device", DEV]
+    res, launches, secs, peak = _counted(
+        ["train-refined-sugar", *common, "--iterations", str(RS_ITERS),
+         "--gaussians-per-triangle", str(RS_PER_TRIANGLE)])
+    trained, meta = res["trained"]
+    hist = res["history"]
+    n = trained.opacities_raw.shape[0]
+    results = {"command_s": secs, "peak_gib": peak, "timings_ms": res["timings_ms"],
+               "history": hist, "gaussians": n, "faces": int(meta.faces.shape[0])}
+    log(f"train-refined-sugar ({meta.faces.shape[0]} faces, {n} Gaussians, {RS_ITERS} "
+        f"iterations): {secs:.1f} s, peak {peak:.2f} GiB, launches {launches}; parts (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+    log("  " + "; ".join(f"it {h['iter']} loss {h['loss']:.4f} psnr {h['psnr']:.2f} "
+                         f"{h['iters_per_s']:.2f} it/s, overflow steps {h['overflow_steps']}"
+                         for h in hist))
+    want = {"blend_forward": RS_ITERS, "blend_backward": RS_ITERS}
+    if launches != want:
+        raise AssertionError(f"train-refined-sugar launched {launches}, not {want}")
+    if n != RS_PER_TRIANGLE * meta.faces.shape[0]:
+        raise AssertionError(f"train-refined-sugar made {n} Gaussians")
+    if not all(np.isfinite(h["loss"]) and not h["overflow"] and h["overflow_steps"] == 0
+               for h in hist):
+        raise AssertionError(f"train-refined-sugar: a non-finite loss or an overflow: {hist}")
+    groups = refined_sugar.param_groups(trained)
+    if not all(torch.isfinite(t).all() for t in groups.values()):
+        raise AssertionError("the refined-SuGaR model has non-finite values")
+    back = checkpoint.load_npz(os.path.join(out, "refined_sugar.npz"), device=DEV,
+                               cls=mesh_bound_lib.MeshBoundParams)
+    if not all(torch.equal(getattr(back, k), t) for k, t in groups.items()):
+        raise AssertionError("refined_sugar.npz does not load back to the trained model")
+    ply = ply_io.read_ply(os.path.join(out, "refined_sugar.ply"))["vertex"]
+    if not (len(ply["x"]) == n and all(np.isfinite(ply[k]).all() for k in ply)):
+        raise AssertionError("refined_sugar.ply does not load back")
+    args = stages_cli.build_parser().parse_args(["render", *common])
+    _scene, scams, gt, rcfg = stages_cli._load_scene(args)
+    # the command's initial model, made again from the same files
+    coarse = stages_cli.load_live_gaussians(os.path.join(out, "sugar.ply"), device=DEV)
+    init, _m = pipeline_lib.init_refined_sugar(*stages_cli.load_mesh(os.path.join(
+        out, "shell.ply")), coarse.means3d, coarse, RS_PER_TRIANGLE, DEV)
+    del coarse
+    with torch.no_grad():
+        before, before_v = _mean_psnr(mesh_bound_lib.activate_mesh_bound(init, meta),
+                                      scams, gt, rcfg)
+        after, after_v = _mean_psnr(mesh_bound_lib.activate_mesh_bound(trained, meta),
+                                    scams, gt, rcfg)
+    results["psnr_init"], results["psnr_refined"] = before_v, after_v
+    log(f"refined SuGaR: mean PSNR over the {len(scams)} views: init {before:.3f} dB, "
+        f"refined {after:.3f} dB (gain {after - before:.3f}, required {RS_PSNR_GAIN})")
+    if not after >= before + RS_PSNR_GAIN:
+        raise AssertionError("refined SuGaR did not raise the mean PSNR by the margin")
+    del init, back, res
+    torch.cuda.empty_cache()
+    results["step_ms"], results["max_abs_err"] = refined_step_timings(
+        trained, meta, scams[0], gt[0], rcfg)
+    return launches, results
+
+
+def blender_camera():
+    """A Blender camera matrix_world (column-vector, looking down its -Z,
+    +Y up) at BLENDER_EYE, looking at the origin with +Z up."""
+    eye = np.asarray(BLENDER_EYE, np.float64)
+    z = eye / np.linalg.norm(eye)  # backward
+    x = np.cross([0.0, 0.0, 1.0], z)
+    x /= np.linalg.norm(x)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, np.cross(z, x), z, eye
+    return m.tolist()
+
+
+def write_blender_package(path, tpose):
+    """One armatured mesh (the shell, tpose [V, 3]) with two bones: "fixed"
+    (the identity) and "bend", which turns the upper hemisphere about the x
+    axis by up to BLENDER_MAX_DEG degrees over BLENDER_FRAMES frames, its
+    weight ramping from 0 to 1 over |z| < BLENDER_BAND; a static camera at
+    MAIN_W x MAIN_H. The per-vertex lists are formatted as JSON text with
+    %.9g (every float32 value read back exactly), the rest by json."""
+    b = np.clip((tpose[:, 2] + BLENDER_BAND) / (2 * BLENDER_BAND), 0.0, 1.0).astype(np.float32)
+    eye = np.eye(4).tolist()
+    poses = []
+    for t in range(BLENDER_FRAMES):
+        a = math.radians(BLENDER_MAX_DEG) * t / (BLENDER_FRAMES - 1)
+        m = np.eye(4)
+        m[1:3, 1:3] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+        poses.append(m.tolist())
+    v = len(tpose)
+    lists = {
+        "@tpose@": ("[%.9g,%.9g,%.9g]," * v) % tuple(tpose.astype(np.float64).ravel().tolist()),
+        "@groups@": '["fixed","bend"],' * v,
+        "@weights@": ("[%.9g,%.9g]," * v) % tuple(
+            np.stack([1.0 - b, b], 1).astype(np.float64).ravel().tolist()),
+    }
+    package = {
+        "camera": {"lens": [50.0] * BLENDER_FRAMES, "sensor_width": 36.0, "width": MAIN_W,
+                   "height": MAIN_H, "matrix_world": [blender_camera()] * BLENDER_FRAMES},
+        "bones": [{
+            "vertex": {"tpose_points": "@tpose@", "groups": "@groups@", "weights": "@weights@",
+                       "matrix_world": eye},
+            "armature": {"rest_bones": {"fixed": eye, "bend": eye},
+                         "pose_bones": {"fixed": [eye] * BLENDER_FRAMES, "bend": poses}},
+        }],
+    }
+    text = json.dumps(package)
+    for key, body in lists.items():
+        text = text.replace(f'"{key}"', "[" + body[:-1] + "]")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return package["camera"]
+
+
+def phase_blender(tmp):
+    """python -m frosting_tpu_torch.blender_cli, in process, on
+    phase_frosting's frosting.npz and a package written here
+    (write_blender_package: the 1M-vertex shell, two bones, 4 frames at
+    1920x1080), twice: the complex adaptation with --occlusion-culling, and
+    --adaptation simple. Each: B1 launched once per frame (B2 never), no
+    overflow, every frame a finite, non-constant PNG, the last pose moving
+    the image; frame 0 (the identity pose) equal, on >= 99.9% of the pixels
+    and within one level on all (B1's rule at 8 bits), to the render of the
+    same model from the package's camera in process: for the simple run
+    the direct render of frosting.npz; for the complex run adapt_frosting
+    at the identity (its least-squares cell transforms, regularised by
+    1e-8 as in JAX, are not the identity in cells whose corners span
+    ~1e-4: that render's distance to the direct one is logged) with the
+    cells the camera sees. The masked Gaussians and each frame's
+    adaptation, SVD and render (CUDA events) are logged. Returns (launches
+    per run, results)."""
+    npz = os.path.join(tmp, "frosting", "frosting.npz")
+    params, meta = checkpoint.load_frosting(npz, device=DEV)
+    pkg = os.path.join(tmp, "package.json")
+    t0 = time.perf_counter()
+    camera = write_blender_package(pkg, params.shell_verts.cpu().numpy())
+    results = {"package_write_s": time.perf_counter() - t0,
+               "package_mb": os.path.getsize(pkg) / 1e6}
+    log(f"blender package of {params.shell_verts.shape[0]} vertices: "
+        f"{results['package_mb']:.1f} MB written in {results['package_write_s']:.1f} s")
+    cam = blender_cli.package_camera({"raw": {"camera": camera}}, 0, MAIN_W, MAIN_H, DEV)
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+
+    def png_of(image):
+        return (np.clip(image.cpu().numpy(), 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+
+    with torch.inference_mode():
+        model = list(frosting_lib.to_gaussians(params, meta))
+        direct = png_of(render(*model, cam, rcfg).image)
+        pf = mesh_raster.rasterize_mesh(params.shell_verts, meta.faces, cam, rcfg).pix_to_face
+        seen = torch.zeros(meta.faces.shape[0] + 1, dtype=torch.bool, device=DEV)
+        seen[pf[pf >= 0]] = True
+        seen = seen[meta.cell_idx].to(model[3].dtype)
+        model[3] = model[3] * seen
+        direct_culled = png_of(render(*model, cam, rcfg).image)
+        eg = editing_lib.adapt_frosting(params, meta, params.shell_verts)
+        adapted = png_of(editing_lib.render_edited(
+            eg._replace(opacities=eg.opacities * seen), cam, rcfg).image)
+    d = np.abs(adapted.astype(np.int16) - direct_culled.astype(np.int16))
+    results["identity_adaptation_vs_direct"] = {"equal_share": float((d == 0).mean()),
+                                                "max_levels": int(d.max())}
+    log(f"the complex adaptation at the identity pose against the direct render (both culled): "
+        f"{(d == 0).mean():.6f} of the pixels equal, max difference {int(d.max())} levels")
+    del pf, seen, eg, model
+    launches = {}
+    for label, extra, want in (("complex_culled", ["--occlusion-culling"], adapted),
+                               ("simple", ["--adaptation", "simple"], direct)):
+        out = os.path.join(tmp, f"frames_{label}")
+        torch.cuda.synchronize()
+        blend_cuda.blend_forward.launches = 0
+        blend_cuda.blend_backward.launches = 0
+        t0 = time.perf_counter()
+        res = blender_cli.main(["--package", pkg, "--checkpoints", npz, "--out", out,
+                                "--max-instances", str(STAGE_MAX_INSTANCES), "--device", DEV,
+                                *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[label] = {"blend_forward": blend_cuda.blend_forward.launches,
+                           "blend_backward": blend_cuda.blend_backward.launches}
+        frames = res["frames"]
+        log(f"blender_cli {' '.join(extra)}: {secs:.1f} s for {len(frames)} frames, launches "
+            f"{launches[label]}, culled capacity {res['culled_capacity']}; per frame: "
+            + "; ".join(f"{f['frame']}: adapt {f['adapt_ms']:.1f} ms (SVD {f['svd_ms']:.1f}), "
+                        f"render {f['render_ms']:.1f} ms, {f['instances']} instances, "
+                        f"masked {f['masked']}" for f in frames))
+        if launches[label] != {"blend_forward": BLENDER_FRAMES, "blend_backward": 0}:
+            raise AssertionError(f"blender_cli {label} launched {launches[label]}")
+        if len(frames) != BLENDER_FRAMES or any(f["overflow"] or f["instances"] <= 0
+                                                for f in frames):
+            raise AssertionError(f"blender_cli {label}: a frame overflowed or is empty")
+        imgs = [image_io.read_image(os.path.join(out, f"frame_{i:05d}.png"))
+                for i in range(BLENDER_FRAMES)]
+        if any(mode != "RGB" or img.std() < 1.0 for img, mode in imgs):
+            raise AssertionError(f"blender_cli {label}: a frame is not an RGB image")
+        first, last = imgs[0][0], imgs[-1][0]
+        diff = np.abs(first.astype(np.int16) - want.astype(np.int16))
+        moved = float(np.abs(last.astype(np.int16) - first.astype(np.int16)).mean())
+        log(f"  frame 0 against the in-process render: {(diff == 0).mean():.6f} of the pixels "
+            f"equal, max difference {int(diff.max())} levels; the last frame differs from "
+            f"frame 0 by {moved:.3f} levels on average")
+        if not ((diff == 0).mean() >= 0.999 and diff.max() <= 1 and moved > 0.1):
+            raise AssertionError(f"blender_cli {label}: frame 0 is not the in-process render, "
+                                 "or the pose moved nothing")
+        results[label] = {"command_s": secs, "frames": frames,
+                          "culled_capacity": res["culled_capacity"],
+                          "frame0_equal_share": float((diff == 0).mean())}
+    return launches, results
+
+
+def hold_learned_shell(params, meta, cam, gt, rcfg):
+    """Two learned-shell, regularised refinement steps at full width from one
+    state (the offsets' gradient through the cell corners' and the normal
+    consistency's fixed-order gathers): bitwise equal parameters and Adam
+    moments (mu = 0.1 g: equal moments, equal gradients)."""
+    cfg = frosting_trainer.FrostingTrainConfig(learn_shell=True, regularize_shell=True)
+    nc = mesh_ops.pair_incidence(torch.from_numpy(mesh_ops.adjacent_face_pairs(
+        meta.faces.cpu().numpy())).to(DEV), meta.faces.shape[0])
+    gt = torch.from_numpy(gt).to(DEV)
+    out = []
+    for _ in range(2):
+        p = frosting_trainer.with_groups(params, {k: t.detach().clone() for k, t in
+                                                  frosting_trainer.param_groups(params).items()})
+        opt = frosting_trainer.make_frosting_optimizer(cfg, TRAIN_EXTENT,
+                                                       background=p.bg is not None)
+        state = opt.init(frosting_trainer.param_groups(p))
+        frosting_trainer.train_step(p, state, meta, cam, gt, torch.ones(
+            p.bary_logits.shape[0], device=DEV), opt, rcfg, cfg, 3, nc)
+        out.append((frosting_trainer.param_groups(p), state))
+    (ga, sa), (gb, sb) = out
+    same = all(torch.equal(ga[k], gb[k]) for k in ga) and all(
+        torch.equal(sa.mu[k], sb.mu[k]) and torch.equal(sa.nu[k], sb.nu[k]) for k in sa.mu)
+    moved = float((ga["outer_dist"] - params.outer_dist).abs().max())
+    log(f"two learned-shell refinement steps from one state: parameters and moments "
+        f"{'bitwise equal' if same else 'DIFFER'} (offsets moved by up to {moved:.3e})")
+    if not (same and moved > 0):
+        raise AssertionError("a learned-shell refinement step is not bitwise reproducible")
+    return same
+
+
+def hold_sdf_samples(params):
+    """The sdf step's draw (sugar_lib.sample_sdf_points at the trainer's
+    sample count, every Gaussian visible) twice with one seed: bitwise equal
+    points, Gaussians and neighbour sets."""
+    means, scales, quats, _o, _sh = (t.detach() for t in gauss_lib.activate(params))
+    knn_idx = sugar_trainer.compute_knn(params)
+    n = sugar_trainer.SugarTrainConfig().n_sdf_samples
+    draws = [sugar_lib.sample_sdf_points(
+        means, scales, quats, knn_idx, torch.ones_like(means[:, 0], dtype=torch.bool), n,
+        generator=torch.Generator(device=DEV).manual_seed(7)) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*draws))
+    log(f"two sdf draws of {n} samples over {means.shape[0]} Gaussians with one seed: "
+        f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the sdf step's samples are not bitwise reproducible")
+    return same
 
 
 def hold_corner_blend(params, meta):
@@ -1569,7 +2216,8 @@ def stages_timings(gs_path, scene, gt0):
             log(f"SuGaR step {label} at {MAIN_W}x{MAIN_H}: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in parts.items()) + " ms (median of 5)")
     hold = hold_depth_render(params, cam, rcfg)
-    return {"knn_ms": knn_runs, "sugar_step_ms": steps, **hold}
+    return {"knn_ms": knn_runs, "sugar_step_ms": steps, **hold,
+            "sdf_samples_bitwise": hold_sdf_samples(params)}
 
 
 def hold_depth_render(params, cam, rcfg):
@@ -1609,6 +2257,7 @@ def hold_depth_render(params, cam, rcfg):
 
 
 def main():
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1630,6 +2279,7 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     # 3. kernels vs plain versions
+    stamp("kernels against their plain versions")
     max_err = {"blend_forward": 0.0, "blend_backward": 0.0}
 
     def check(label, fields, binned, cfg, plain_chunk=None):
@@ -1662,6 +2312,7 @@ def main():
         del fields, binned
 
     # 4. serving path: gs.ply -> load_ply -> viewer at 1920x1080
+    stamp("serving path")
     raw = raw_params(bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gs.ply")
@@ -1716,9 +2367,11 @@ def main():
     # 5. training path at full width (max_instances far above the ground
     # truth's count: binning sizes its buffers to the views' real counts)
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128, max_instances=1 << 24)
+    stamp("training path")
     state, tcams, gt_imgs, tcfg, launches = phase_training(model, rcfg)
 
     # 6. timing at 1080p @ 1M
+    stamp("timing at 1080p")
     with torch.inference_mode():
         for c in cams:
             proj = preprocess(*model, c, cfg)
@@ -1805,16 +2458,19 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. the bench path: the probes held, then the entry points in process
+    stamp("bench path")
     probe_err = hold_probes()
     bench_launches, bench_times = phase_bench()
     probe_records = probe_timings(probe_err, bench_times, bench_launches)
     bench_profiles()
 
     # 8. the stages path: a scene on disk through stages_cli
+    stamp("stages path (stage 3 with stages 1-2 beside its QEM, stages 4-6, editing)")
     stage_launches, extract_launches, frosting_launches, stage_times = phase_stages(raw, model)
     log(json.dumps({"stages": stage_times}))
     for errs in (stage_times["depth_render_max_abs_err"],
-                 *stage_times["frosting"]["max_abs_err"].values()):
+                 *stage_times["frosting"]["max_abs_err"].values(),
+                 stage_times["refined_sugar"]["max_abs_err"]):
         for name, err in errs.items():
             max_err[name] = max(max_err[name], err)
 
@@ -1834,6 +2490,10 @@ def main():
                 "extract_shell": extract_launches[name],
                 "frosting": frosting_launches["frosting"][name],
                 "frosting_culled": frosting_launches["frosting_culled"][name],
+                "extract_texture": frosting_launches["texture"][name],
+                "train_refined_sugar": frosting_launches["refined_sugar"][name],
+                "blender_cli_complex_culled": frosting_launches["blender_complex_culled"][name],
+                "blender_cli_simple": frosting_launches["blender_simple"][name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs
@@ -1863,6 +2523,10 @@ def main():
     ] + probe_records
     records[1]["reduction"] = reduction
     records[1]["depth_render"] = stage_times["depth_render_b2_against_float64"]
+    records[1]["refined_sugar_step"] = stage_times["refined_sugar"]["step_ms"].pop(
+        "b2_against_float64")
+    stamp("the kernels record")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from frosting_tpu_torch.ops import quat as quat_ops
+from frosting_tpu_torch.ops import segment
 
 
 class FieldValues(NamedTuple):
@@ -206,12 +207,15 @@ def sample_points_in_gaussians(
     normalised cumulative weight's end, as ``jax.random.uniform(maxval=
     cdf[-1])`` scales its draw), and ``eps`` [S, 3], standard normal; each
     comes from ``generator`` when it is not given (a test passes the JAX
-    package's own draws)."""
+    package's own draws). The CDF is ``segment.cumsum``, summed in a fixed
+    order, so the samples are bitwise equal over runs on the card; its
+    float32 sums round apart from JAX's cumsum, so a draw within a rounding
+    of a CDF boundary may take the neighbouring Gaussian."""
     if mask is not None:
         weights = weights * mask
     dev = centers.device
     p = weights / torch.clamp(torch.sum(weights), min=1e-12)
-    cdf = torch.cumsum(p, dim=0)
+    cdf = segment.cumsum(p)  # torch.cumsum's 1-D scan varies on the card
     if u is None:
         u = torch.rand((n_samples,), generator=generator, device=dev)
     u = u * cdf[-1]

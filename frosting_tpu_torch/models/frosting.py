@@ -18,6 +18,9 @@ What differs from the JAX version, on purpose:
   the Gaussians (JAX routes both to the host CPU, a TPU workaround), with
   the random draws from a ``torch.Generator`` or passed in (a test hands
   over JAX's own ``jax.random`` draws);
+- the cells' corners gather the sheets through ``mesh_ops.face_corners``,
+  whose backward sums each vertex's rows in a fixed order (a learned
+  shell's offsets get bitwise reproducible gradients);
 - the KNN is exact (``ops/knn.py``);
 - init reports its parts' times through a ``PartTimes`` in place of JAX's
   ``FROSTING_INIT_DEBUG`` switch.
@@ -156,10 +159,12 @@ def shell_sheets(p: FrostingParams, faces: torch.Tensor,
 
 def cell_corners(p: FrostingParams, faces: torch.Tensor,
                  incidence: Optional[mesh_ops.VertexIncidence] = None) -> torch.Tensor:
-    """[F, 6, 3]: the inner triangle's vertices, then the outer's."""
+    """[F, 6, 3]: the inner triangle's vertices, then the outer's. With
+    ``incidence`` the corners' gathers sum their gradient in its fixed order
+    (a learned shell's offsets get bitwise reproducible gradients)."""
     inner, outer, _ = shell_sheets(p, faces, incidence)
-    faces = faces.long()
-    return torch.cat([inner[faces], outer[faces]], dim=1)
+    return torch.cat([mesh_ops.face_corners(inner, faces, incidence),
+                      mesh_ops.face_corners(outer, faces, incidence)], dim=1)
 
 
 def _weighted_corners(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

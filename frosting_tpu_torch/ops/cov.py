@@ -48,6 +48,14 @@ def cov3d_from_scale_quat(scales: torch.Tensor, quats: torch.Tensor) -> torch.Te
     )
 
 
+def unpack_cov3d(cov6: torch.Tensor) -> torch.Tensor:
+    """[..., 6] packed -> [..., 3, 3] symmetric."""
+    xx, xy, xz, yy, yz, zz = (cov6[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)
+
+
 def ewa_project(
     means3d: torch.Tensor,  # [..., 3] world positions
     cov6: torch.Tensor,  # [..., 6] packed world covariance

@@ -12,7 +12,11 @@ vertices on a strict inside test, where one flipped bit could change which
 ones freeze. The order is that of JAX's three scatters on the CPU (corner
 0 of every face in face order, then corner 1, then corner 2), and depends
 only on the faces: build it once per mesh (``vertex_incidence``).
-``laplacian_smoothing_loss`` still sums with ``index_add``.
+The same incidence gives gathers of face corners a fixed-order backward
+(``face_corners``, ``face_normals`` given it, and ``normal_consistency_loss``,
+whose face pairs come as a ``PairIncidence``), which a trained shell or learned vertices
+need for reproducible gradients. ``laplacian_smoothing_loss`` still sums
+with ``index_add``.
 """
 
 from __future__ import annotations
@@ -25,14 +29,19 @@ import torch
 from frosting_tpu_torch.ops import segment
 
 
-def _corners(verts, faces):
+def _corners(verts, faces, incidence=None):
+    if incidence is not None:
+        tri = face_corners(verts, faces, incidence)
+        return tri[:, 0], tri[:, 1], tri[:, 2]
     faces = faces.long()
     return verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
 
 
-def face_normals(verts: torch.Tensor, faces: torch.Tensor, eps=1e-12):
-    """[F, 3] unit normals (CCW winding)."""
-    v0, v1, v2 = _corners(verts, faces)
+def face_normals(verts: torch.Tensor, faces: torch.Tensor, eps=1e-12,
+                 incidence: Optional[VertexIncidence] = None):
+    """[F, 3] unit normals (CCW winding); with ``incidence`` the corners'
+    gather has a fixed-order backward."""
+    v0, v1, v2 = _corners(verts, faces, incidence)
     n = torch.linalg.cross(v1 - v0, v2 - v0)
     return n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=eps)
 
@@ -47,6 +56,7 @@ class VertexIncidence(NamedTuple):
 
     face: torch.Tensor  # [3F] face of each (vertex, face corner) incidence
     offsets: torch.Tensor  # [V + 1] bounds of each vertex's run in `face`
+    order: torch.Tensor  # [3F] each incidence's position in the corner-major list
 
 
 def vertex_incidence(faces: torch.Tensor, n_verts: int) -> VertexIncidence:
@@ -54,7 +64,20 @@ def vertex_incidence(faces: torch.Tensor, n_verts: int) -> VertexIncidence:
     a stable sort of the corner-major list (corner 0 of faces 0..F-1, then
     corner 1, then corner 2)."""
     order, offsets = segment.sort_by_index(faces.long().t().reshape(-1), n_verts)
-    return VertexIncidence(order % faces.shape[0], offsets)
+    return VertexIncidence(order % faces.shape[0], offsets, order)
+
+
+def face_corners(x: torch.Tensor, faces: torch.Tensor,
+                 incidence: Optional[VertexIncidence] = None) -> torch.Tensor:
+    """[F, 3, C]: x[faces] for per-vertex rows x [V, C]. With ``incidence``
+    (of these faces) its backward sums each vertex's corner rows in the
+    incidence's fixed order (``segment.gather_rows``), with no float
+    atomics; without, it is the plain gather."""
+    faces = faces.long()
+    if incidence is None:
+        return x[faces]
+    flat = segment.gather_rows(x, faces.t().reshape(-1), incidence.order, incidence.offsets)
+    return flat.reshape((3, faces.shape[0]) + x.shape[1:]).transpose(0, 1)
 
 
 def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, eps=1e-12,
@@ -106,13 +129,31 @@ def adjacent_face_pairs(faces: np.ndarray) -> np.ndarray:
     return np.stack([fi[:-1][same], fi[1:][same]], axis=1)
 
 
+class PairIncidence(NamedTuple):
+    """Adjacent face pairs with the fixed order their gathers' backward sums
+    in: ``segment.sort_by_index`` of the pair-major list (pairs[:, 0], then
+    pairs[:, 1])."""
+
+    index: torch.Tensor  # [2P] the pair-major list of faces
+    order: torch.Tensor  # [2P]
+    offsets: torch.Tensor  # [F + 1]
+
+
+def pair_incidence(pairs: torch.Tensor, n_faces: int) -> PairIncidence:
+    index = pairs.long().t().reshape(-1)
+    return PairIncidence(index, *segment.sort_by_index(index, n_faces))
+
+
 def normal_consistency_loss(
-    verts: torch.Tensor, faces: torch.Tensor, pairs: torch.Tensor
+    verts: torch.Tensor, faces: torch.Tensor, pairs: PairIncidence,
+    incidence: Optional[VertexIncidence] = None,
 ) -> torch.Tensor:
-    """1 - cos between adjacent face normals (mesh_normal_consistency)."""
-    fn = face_normals(verts, faces)
-    pairs = pairs.long()
-    n0, n1 = fn[pairs[:, 0]], fn[pairs[:, 1]]
+    """1 - cos between adjacent face normals (mesh_normal_consistency), over
+    the face pairs of ``pairs`` (``pair_incidence``); with the faces'
+    ``incidence`` too every gather has a fixed-order backward, so the loss's
+    gradient is bitwise reproducible."""
+    fn = face_normals(verts, faces, incidence=incidence)
+    n0, n1 = segment.gather_rows(fn, pairs.index, pairs.order, pairs.offsets).reshape(2, -1, 3)
     return torch.mean(1.0 - torch.sum(n0 * n1, dim=-1))
 
 

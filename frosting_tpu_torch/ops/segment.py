@@ -7,8 +7,9 @@ sort, and each index's run is summed sequentially in that order by
 ``segment_reduce`` over offsets found by ``searchsorted`` (no host sync), so
 the sums are bitwise reproducible on the card. The order depends only on
 the index: build it once (``sort_by_index``) where the index is fixed, as a
-mesh's faces or a frosting's cell assignment are. ``cumsum`` is a
-cumulative sum in a fixed order, for the same reason.
+mesh's faces or a frosting's cell assignment are. ``gather_rows`` is an
+indexing gather whose backward sums so, and ``cumsum`` a cumulative sum in
+a fixed order, for the same reason.
 """
 
 from __future__ import annotations
@@ -37,6 +38,31 @@ def sum_by_index(rows: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tenso
     """[n, ...]: the rows of each index value summed, in row order."""
     order, offsets = sort_by_index(index, n)
     return segment_sum(rows[order], offsets)
+
+
+class GatherRows(torch.autograd.Function):
+    """x[index] for a 1-D index, differentiable in x: the backward sums the
+    incoming rows into x's rows in the fixed order of (order, offsets) =
+    ``sort_by_index(index, len(x))``, where autograd's backward of the
+    gather would scatter-add them with float atomics."""
+
+    @staticmethod
+    def forward(ctx, x, index, order, offsets):
+        ctx.save_for_backward(order, offsets)
+        return x[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        order, offsets = ctx.saved_tensors
+        return segment_sum(g[order], offsets), None, None, None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor, order: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """x[index] ([M, ...] for index [M]) whose gradient reaches x as fixed-
+    order segment sums; (order, offsets) = sort_by_index(index, len(x)),
+    built once where the index is fixed."""
+    return GatherRows.apply(x, index, order, offsets)
 
 
 def cumsum(x: torch.Tensor, block: int = 1024) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Export of trained models as 3DGS-viewer PLY files.
+"""Refined SuGaR on an extracted shell, and export of trained models as
+3DGS-viewer PLY files.
 
-Counterpart of ``export_gaussians_ply`` and ``export_frosting_ply`` of
-``frosting_tpu/pipeline.py``, over the port's ``utils/ply.py``; the files
-are byte for byte what the JAX package writes for the same arrays. The
-pipeline runner (``run_pipeline``, the stage-artifact cache) is not ported
-yet: ROADMAP item A12.
+Counterpart of ``train_refined_sugar`` (its init apart, as
+``init_refined_sugar``), ``export_gaussians_ply`` and
+``export_frosting_ply`` of ``frosting_tpu/pipeline.py``; the PLY files, over
+the port's ``utils/ply.py``, are byte for byte what the JAX package writes
+for the same arrays. The pipeline runner (``run_pipeline``, the
+stage-artifact cache) is not ported yet: ROADMAP item A12.
 """
 
 from __future__ import annotations
@@ -14,6 +16,61 @@ import torch
 
 from frosting_tpu_torch.models import frosting as frosting_lib
 from frosting_tpu_torch.utils import ply as ply_io
+
+
+@torch.no_grad()
+def init_refined_sugar(verts, faces, coarse_means: torch.Tensor, coarse_params,
+                       n_per_triangle: int = 6, device="cuda"):
+    """The mesh-bound model of refined SuGaR: flat Gaussians pinned to the
+    mesh triangles (sugar_model.py:186-360), their SH-dc seeded from each
+    vertex's nearest coarse Gaussian (the exact KNN, k = 1). Returns
+    (MeshBoundParams, MeshBoundMeta)."""
+    from frosting_tpu_torch.models import mesh_bound as mb_lib
+    from frosting_tpu_torch.ops import knn as knn_lib
+    from frosting_tpu_torch.ops import sh as sh_ops
+
+    v = torch.from_numpy(np.asarray(verts, np.float32)).to(coarse_means.device)
+    idx = knn_lib.knn_query(v, coarse_means, k=1)[0][:, 0]
+    vert_colors = sh_ops.sh_to_rgb(coarse_params.sh_dc[idx, 0]).cpu().numpy()
+    return mb_lib.init_mesh_bound(np.asarray(verts), np.asarray(faces),
+                                  n_per_triangle=n_per_triangle, vertex_colors=vert_colors,
+                                  device=device)
+
+
+def train_refined_sugar(
+    verts,  # [V, 3] array
+    faces,  # [F, 3] array
+    coarse_means: torch.Tensor,  # [N, 3]
+    coarse_params,  # GaussianParams: the SH source
+    spatial_extent: float,
+    cameras,
+    gt_images: np.ndarray,
+    rcfg,
+    iterations: int = 2_000,
+    n_per_triangle: int = 6,
+    white_background: bool = False,
+    seed: int = 0,
+    log_fn=print,
+    device="cuda",
+    parts=None,
+):
+    """Refined mesh-bound SuGaR on an extracted shell: init_refined_sugar's
+    model, its in-plane scales, rotations, opacities and SH optimised
+    against the photometric loss. Returns (MeshBoundParams, MeshBoundMeta,
+    history); ``parts`` collects the init's and the loop's times."""
+    from frosting_tpu_torch.train import refined_sugar as rs_trainer
+    from frosting_tpu_torch.utils.profiling import PartTimes
+
+    parts = parts or PartTimes(device)
+    with parts.device("init (vertex colour KNN + mesh binding)"):
+        rs_params, rs_meta = init_refined_sugar(verts, faces, coarse_means, coarse_params,
+                                                n_per_triangle, device)
+    rs_cfg = rs_trainer.MeshBoundTrainConfig(
+        iterations=iterations, lr_max_steps=iterations, white_background=white_background)
+    rs_params, rs_hist = rs_trainer.train(
+        rs_params, rs_meta, spatial_extent, cameras, gt_images, rcfg, rs_cfg, seed=seed,
+        log_fn=log_fn, device=device, parts=parts)
+    return rs_params, rs_meta, rs_hist
 
 
 def _host(t) -> np.ndarray:

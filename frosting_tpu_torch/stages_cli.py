@@ -1,17 +1,21 @@
 """Per-stage command line of the port: stage 1 (3DGS), stage 2 (coarse
-SuGaR), stage 3 (shell extraction), stages 4-5 (the Frosting layer) and
-rendering of a scene on disk.
+SuGaR), stage 3 (shell extraction), refined SuGaR, stages 4-5 (the Frosting
+layer), stage 6 (the textured mesh) and rendering of a scene on disk.
 
 Counterpart of the ``train-gs``, ``train-sugar``, ``extract-shell``,
-``train-frosting`` and ``render`` commands of ``frosting_tpu/stages_cli.py``.
-Each command reads and writes artifacts in -o/--output (gs.ply, sugar.ply,
-shell.ply, shell_lowpoly.ply, frosting.npz, frosting.ply, renders/), so the
-stages run and resume independently:
+``train-refined-sugar``, ``train-frosting``, ``extract-texture`` and
+``render`` commands of ``frosting_tpu/stages_cli.py``. Each command reads
+and writes artifacts in -o/--output (gs.ply, sugar.ply, shell.ply,
+shell_lowpoly.ply, refined_sugar.npz / .ply, frosting.npz, frosting.ply,
+mesh.obj / .mtl / .png, renders/), so the stages run and resume
+independently:
 
   python -m frosting_tpu_torch.stages_cli train-gs       -s SCENE -o OUT [...]
   python -m frosting_tpu_torch.stages_cli train-sugar    -s SCENE -o OUT -r density|sdf|dn_consistency
   python -m frosting_tpu_torch.stages_cli extract-shell  -s SCENE -o OUT [--both-poly] [--method surface|centers|marching]
+  python -m frosting_tpu_torch.stages_cli train-refined-sugar -s SCENE -o OUT [--gaussians-per-triangle 1|3|4|6]
   python -m frosting_tpu_torch.stages_cli train-frosting -s SCENE -o OUT [--occlusion-culling] [--learn-shell] [...]
+  python -m frosting_tpu_torch.stages_cli extract-texture -s SCENE -o OUT [--texture-size 1024]
   python -m frosting_tpu_torch.stages_cli render         -s SCENE -o OUT
 
 SCENE is a COLMAP scene (sparse/0 or sparse, and images/). The commands run
@@ -224,6 +228,53 @@ def cmd_train_frosting(args):
             "culled_max_instances": None if rcfg_culled is None else rcfg_culled.max_instances}
 
 
+def cmd_train_refined_sugar(args):
+    """Refined (mesh-bound) SuGaR on shell.ply, seeded from sugar.ply; write
+    refined_sugar.npz (JAX's leaves and dtypes) and refined_sugar.ply.
+    Returns the log-step metrics, the parts' times (ms) and the trained
+    (params, meta)."""
+    from frosting_tpu_torch.models.mesh_bound import activate_mesh_bound
+    from frosting_tpu_torch.pipeline import export_gaussians_ply, train_refined_sugar
+    from frosting_tpu_torch.train import checkpoint
+    from frosting_tpu_torch.utils.profiling import PartTimes
+
+    parts = PartTimes(args.device)
+    scene, cams, gt, rcfg = _load_scene(args)
+    params = load_live_gaussians(os.path.join(args.output, "sugar.ply"), device=args.device)
+    verts, faces = load_mesh(_mesh_path(args.output))
+    rs_params, rs_meta, history = train_refined_sugar(
+        verts, faces, params.means3d.detach(), params, scene.spatial_extent, cams, gt, rcfg,
+        iterations=args.iterations, n_per_triangle=args.gaussians_per_triangle,
+        white_background=args.white_bg, device=args.device, parts=parts)
+    with parts.host("checkpoint write"):
+        checkpoint.save_npz(os.path.join(args.output, "refined_sugar.npz"), rs_params)
+    with parts.host("PLY write"), torch.no_grad():
+        export_gaussians_ply(*activate_mesh_bound(rs_params, rs_meta),
+                             os.path.join(args.output, "refined_sugar.ply"))
+    print("wrote", os.path.join(args.output, "refined_sugar.ply"))
+    return {"history": history, "timings_ms": parts.result(), "trained": (rs_params, rs_meta)}
+
+
+def cmd_extract_texture(args):
+    """Bake frosting.npz into mesh.obj / mesh.mtl / mesh.png (stage 6).
+    Returns the parts' times (ms), the seen texel share and the texel
+    counts."""
+    from frosting_tpu_torch.extract import texture as texture_lib
+    from frosting_tpu_torch.train import checkpoint
+    from frosting_tpu_torch.utils.profiling import PartTimes
+
+    parts = PartTimes(args.device)
+    _scene, cams, _gt, rcfg = _load_scene(args)
+    with parts.host("checkpoint load"):
+        fparams, meta = checkpoint.load_frosting(
+            os.path.join(args.output, "frosting.npz"), device=args.device)
+    stats = texture_lib.extract_textured_mesh(
+        fparams, meta, cams, rcfg, os.path.join(args.output, "mesh.obj"),
+        texture_size=args.texture_size, parts=parts)
+    print("wrote", os.path.join(args.output, "mesh.obj"))
+    return {"timings_ms": parts.result(), **stats}
+
+
 def cmd_render(args):
     """Render frosting.npz (or gs.ply where there is none) from the train
     and test cameras into renders/{split}_{i:05d}.png."""
@@ -303,6 +354,17 @@ def build_parser():
     sp.add_argument("--normal-consistency-factor", type=float, default=0.1)
     sp.set_defaults(fn=cmd_train_frosting)
 
+    sp = sub.add_parser("train-refined-sugar")
+    _common(sp)
+    sp.add_argument("--iterations", type=int, default=2_000)
+    sp.add_argument("--gaussians-per-triangle", type=int, default=6, choices=[1, 3, 4, 6])
+    sp.set_defaults(fn=cmd_train_refined_sugar)
+
+    sp = sub.add_parser("extract-texture")
+    _common(sp)
+    sp.add_argument("--texture-size", type=int, default=1024)
+    sp.set_defaults(fn=cmd_extract_texture)
+
     sp = sub.add_parser("render")
     _common(sp)
     sp.set_defaults(fn=cmd_render)
@@ -313,7 +375,8 @@ def main(argv=None):
     """Run one command; returns what the command returns (train-gs and
     train-sugar: their log-step metrics; extract-shell: its timings and
     counts; train-frosting: its metrics, timings, initialised and refined
-    models)."""
+    models; train-refined-sugar: its metrics, timings and trained model;
+    extract-texture: its timings and texel statistics)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

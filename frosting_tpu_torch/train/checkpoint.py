@@ -2,12 +2,13 @@
 
 Counterpart of ``save_npz``/``load_npz`` and ``save_frosting``/
 ``load_frosting`` in ``frosting_tpu/train/checkpoint.py``, without orbax.
-``save_npz`` stores the leaves as ``leaf_0`` ... ``leaf_6`` in
-GaussianParams' field order, the order in which JAX flattens that
-dataclass. ``save_frosting`` stores a frosting model by name: its fields,
-``bg_<field>`` for the background Gaussians and ``meta_faces``,
-``meta_cell_idx``, ``meta_cell_bounds``, float32 and int32 as JAX writes
-them. A file either package writes loads in the other.
+``save_npz`` stores a parameter dataclass's leaves as ``leaf_0``,
+``leaf_1``, ... in its field order, the order in which JAX flattens it
+(GaussianParams' seven, MeshBoundParams' six). ``save_frosting`` stores a
+frosting model by name: its fields, ``bg_<field>`` for the background
+Gaussians and ``meta_faces``, ``meta_cell_idx``, ``meta_cell_bounds``,
+float32 and int32 as JAX writes them. A file either package writes loads
+in the other.
 """
 
 from __future__ import annotations
@@ -20,24 +21,27 @@ import torch
 from frosting_tpu_torch.scene.gaussians import GaussianParams
 
 
-def save_npz(path: str, params: GaussianParams) -> None:
+def save_npz(path: str, params) -> None:
+    """A parameter dataclass (GaussianParams, MeshBoundParams) as its
+    leaves in field order."""
     np.savez(
         path,
         **{
             f"leaf_{i}": getattr(params, f.name).detach().cpu().numpy()
-            for i, f in enumerate(dataclasses.fields(GaussianParams))
+            for i, f in enumerate(dataclasses.fields(params))
         },
     )
 
 
-def load_npz(path: str, device="cuda") -> GaussianParams:
-    z = np.load(path)
-    return GaussianParams(
-        **{
-            f.name: torch.from_numpy(z[f"leaf_{i}"]).to(device)
-            for i, f in enumerate(dataclasses.fields(GaussianParams))
-        }
-    )
+def load_npz(path: str, device="cuda", cls=GaussianParams):
+    """A save_npz file (either package's) as a `cls` on `device`."""
+    with np.load(path) as z:
+        return cls(
+            **{
+                f.name: torch.from_numpy(z[f"leaf_{i}"]).to(device)
+                for i, f in enumerate(dataclasses.fields(cls))
+            }
+        )
 
 
 def save_frosting(path: str, params, meta) -> None:

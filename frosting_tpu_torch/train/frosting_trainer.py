@@ -11,7 +11,10 @@ and outer offsets. No densification (refine.py docstring).
 The step updates the parameters in place (JAX donates its buffers) and never
 waits on the device: a loss that is not finite makes it a no-op, and only
 log steps read values back. When the shell does not train, its tensors take
-no gradient, and the cells' corners are computed once, without autograd.
+no gradient, and the cells' corners are computed once, without autograd;
+when it does, its offsets' gradient comes through gathers whose backward
+sums in a fixed order (the cell corners' and the normal consistency's), so
+a step is bitwise reproducible on the card either way.
 The optimizer is the port's per-group Adam with the frozen groups absent
 (optax's ``set_to_zero``). Cameras are visited in the order
 ``np.random.default_rng(seed)`` gives, as in JAX, so both packages see the
@@ -133,15 +136,18 @@ def with_groups(p: FrostingParams, groups: Dict[str, torch.Tensor]) -> FrostingP
         p, **own, bg=dataclasses.replace(p.bg, **bg) if bg else p.bg)
 
 
-def shell_normal_consistency(p: FrostingParams, meta: FrostingMeta, nc_pairs: torch.Tensor,
+def shell_normal_consistency(p: FrostingParams, meta: FrostingMeta,
+                             nc_pairs: mesh_ops.PairIncidence,
                              cfg: FrostingTrainConfig) -> torch.Tensor:
     """The normal consistency of the inner and outer offset surfaces
-    (verts + dist * normal); its gradient reaches the offsets."""
+    (verts + dist * normal); its gradient reaches the offsets, through
+    gathers whose backward sums in a fixed order. ``nc_pairs``: the
+    adjacent face pairs' ``mesh_ops.pair_incidence``."""
     vn = mesh_ops.vertex_normals(p.shell_verts, meta.faces, incidence=meta.incidence)
     l_out = mesh_ops.normal_consistency_loss(
-        p.shell_verts + p.outer_dist[:, None] * vn, meta.faces, nc_pairs)
+        p.shell_verts + p.outer_dist[:, None] * vn, meta.faces, nc_pairs, meta.incidence)
     l_in = mesh_ops.normal_consistency_loss(
-        p.shell_verts + p.inner_dist[:, None] * vn, meta.faces, nc_pairs)
+        p.shell_verts + p.inner_dist[:, None] * vn, meta.faces, nc_pairs, meta.incidence)
     return cfg.normal_consistency_factor * 0.5 * (l_out + l_in)
 
 
@@ -160,7 +166,7 @@ def frozen_corners(params: FrostingParams, meta: FrostingMeta, opt: GSOptimizer)
 
 
 def frozen_shell_reg(params: FrostingParams, meta: FrostingMeta,
-                     nc_pairs: Optional[torch.Tensor], opt: GSOptimizer,
+                     nc_pairs: Optional[mesh_ops.PairIncidence], opt: GSOptimizer,
                      cfg: FrostingTrainConfig) -> Optional[torch.Tensor]:
     """The shell regulariser when no shell group trains (a constant then,
     added to every step's logged loss); None when one does or when the
@@ -183,7 +189,7 @@ def train_step(
     rcfg: RasterConfig,
     cfg: FrostingTrainConfig,
     active_sh_degree: int,
-    nc_pairs: Optional[torch.Tensor] = None,
+    nc_pairs: Optional[mesh_ops.PairIncidence] = None,
     corners: Optional[torch.Tensor] = None,
     shell_reg: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
@@ -297,8 +303,8 @@ def train(
     ones_mask = torch.ones((n_total,), device=device)
     nc_pairs = None
     if cfg.regularize_shell:
-        nc_pairs = torch.from_numpy(mesh_ops.adjacent_face_pairs(
-            meta.faces.cpu().numpy())).to(device)
+        nc_pairs = mesh_ops.pair_incidence(torch.from_numpy(mesh_ops.adjacent_face_pairs(
+            meta.faces.cpu().numpy())).to(device), meta.faces.shape[0])
     vis_masks = None
     if cfg.use_occlusion_culling:
         # zero opacity for the Gaussians of unseen cells: the preprocess's

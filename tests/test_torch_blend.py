@@ -61,8 +61,10 @@ def test_blend_matches_jax(width, height, chunk):
 
 
 def test_blend_matches_pallas_interpret():
+    # 32x32: 2x2 tiles (interpret mode unrolls the kernel's grid, so its
+    # trace and compile grow with the tiles)
     arrays = make_scene(n=250, seed=11, opaque_wall=True)
-    jproj, tproj, jcfg, tcfg = _projected(arrays, 64, 64)
+    jproj, tproj, jcfg, tcfg = _projected(arrays, 32, 32)
     pcfg = dataclasses.replace(jcfg, backend="pallas", pallas_interpret=True)
     ref = _jax_blend(jproj, pcfg)
     out = _port_blend(tproj, tcfg)

@@ -13,6 +13,8 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -683,7 +685,7 @@ def test_one_frosting_step_on_the_card(cuda):
     rcfg = RasterConfig(width=160, height=120, max_instances=1 << 20)
     gt = torch.rand((3, 120, 160), generator=torch.Generator().manual_seed(0))
     cfg = frosting_trainer.FrostingTrainConfig(regularize_shell=True)
-    nc = torch.from_numpy(mesh_ops.adjacent_face_pairs(m0.faces.numpy()))
+    pairs = torch.from_numpy(mesh_ops.adjacent_face_pairs(m0.faces.numpy()))
     results = []
     for dev in ("cpu", cuda):
         p = frosting_trainer.with_groups(p0, {k: t.to(dev, copy=True) for k, t in
@@ -696,7 +698,8 @@ def test_one_frosting_step_on_the_card(cuda):
         launches = (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
         out = frosting_trainer.train_step(p, state, m, cam, gt.to(dev),
                                           torch.ones(p.bary_logits.shape[0], device=dev), opt,
-                                          rcfg, cfg, 3, nc.to(dev))
+                                          rcfg, cfg, 3,
+                                          mesh_ops.pair_incidence(pairs.to(dev), m.faces.shape[0]))
         if dev != "cpu":
             assert (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches) == (
                 launches[0] + 1, launches[1] + 1)
@@ -711,3 +714,270 @@ def test_one_frosting_step_on_the_card(cuda):
         off = err > 1e-5 + 1e-4 * want.abs()
         assert off.float().mean().item() <= 0.01, (name, int(off.sum()))
         assert err.max().item() <= 2 * lrs[name] + 1e-6, (name, err.max().item())
+
+
+def _learned_shell_step(p0, m0, cam, gt, cuda):
+    """One learned-shell, regularised refinement step on the card from a
+    copy of p0; returns its params and Adam state (mu = 0.1 g: equal moments
+    are equal gradients)."""
+    cfg = frosting_trainer.FrostingTrainConfig(learn_shell=True, regularize_shell=True)
+    p = frosting_trainer.with_groups(p0, {k: t.to(cuda, copy=True) for k, t in
+                                          frosting_trainer.param_groups(p0).items()})
+    m = frosting_lib.make_meta(m0.faces, m0.cell_idx, m0.cell_bounds,
+                               n_verts=p.shell_verts.shape[0], device=cuda)
+    nc = mesh_ops.pair_incidence(
+        torch.from_numpy(mesh_ops.adjacent_face_pairs(m0.faces.cpu().numpy())).to(cuda),
+        m.faces.shape[0])
+    opt = frosting_trainer.make_frosting_optimizer(cfg, 3.5, background=p.bg is not None)
+    state = opt.init(frosting_trainer.param_groups(p))
+    assert "inner_dist" in opt.groups
+    frosting_trainer.train_step(p, state, m, cam, gt, torch.ones(p.bary_logits.shape[0],
+                                                                  device=cuda),
+                                opt, RasterConfig(width=160, height=120, max_instances=1 << 20),
+                                cfg, 3, nc)
+    return frosting_trainer.param_groups(p), state
+
+
+def test_learned_shell_step_is_bitwise_reproducible(cuda):
+    """Two learned-shell steps (offsets through the cell corners' and the
+    normal consistency's gathers, all fixed-order sums) from one state give
+    bitwise equal parameters and moments."""
+    inputs = _frosting_inputs()
+    p0, m0 = _init_frosting(cuda, inputs)
+    cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=cuda)
+    gt = torch.rand((3, 120, 160), generator=torch.Generator().manual_seed(0)).to(cuda)
+    (ga, sa), (gb, sb) = (_learned_shell_step(p0, m0, cam, gt, cuda) for _ in range(2))
+    for k in ga:
+        assert torch.equal(ga[k], gb[k]), k
+    for k in sa.mu:
+        assert torch.equal(sa.mu[k], sb.mu[k]) and torch.equal(sa.nu[k], sb.nu[k]), k
+    assert float((ga["outer_dist"] - p0.outer_dist).abs().max()) > 0
+
+
+def test_sdf_samples_are_bitwise_reproducible(cuda):
+    """sample_points_in_gaussians at 2M weights: two calls with one seed
+    draw bitwise equal samples (the CDF is segment.cumsum, not the 1-D
+    torch.cumsum scan), each a Gaussian whose CDF interval holds its draw
+    to within the float32 CDF's rounding."""
+    from frosting_tpu_torch.models import fields
+
+    rng = np.random.default_rng(0)
+    n = 2_000_000
+    centers, scales = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)) for _ in "ab")
+    quats = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    out = []
+    for dev in (cuda, cuda):
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        u, eps = torch.rand(200_000, generator=gen), torch.randn((200_000, 3), generator=gen)
+        out.append(fields.sample_points_in_gaussians(
+            200_000, centers.to(dev), scales.abs().to(dev), quats.to(dev), w.to(dev),
+            u=u.to(dev), eps=eps.to(dev)))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    # each device's draw is the inverse CDF of its own float32 CDF, which
+    # lies within delta of the float64 one: the Gaussian the card drew has a
+    # float64 CDF interval within delta of its draw (at 2M weights a float32
+    # CDF's rounding spans several Gaussians, so the CPU draws others)
+    p = w.double() / w.double().sum()
+    cdf64 = torch.cumsum(p, 0)
+    from frosting_tpu_torch.ops import segment
+    wc = w.to(cuda)
+    cdf = segment.cumsum(wc / torch.clamp(torch.sum(wc), min=1e-12))  # as the sampler
+    x = (u.to(cuda) * cdf[-1]).cpu().double()
+    cdf = cdf.cpu().double()
+    delta = (cdf - cdf64).abs().max().item()
+    assert delta <= 1e-5
+    idx = out[0][1].cpu()
+    lo = torch.where(idx > 0, cdf64[(idx - 1).clamp_min(0)], 0.0)
+    assert bool(((lo - delta <= x) & (x <= cdf64[idx] + delta)).all())
+
+
+def test_gather_rows_on_the_card(cuda):
+    """segment.gather_rows' backward at 6M rows into 1M: bitwise equal over
+    two calls, and equal to the CPU's (the same order of the same sums)."""
+    from frosting_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(1)
+    index = torch.from_numpy(rng.integers(0, 1_000_000, 6_000_000))
+    g = torch.from_numpy(rng.normal(size=(6_000_000, 3)).astype(np.float32))
+    x = torch.zeros((1_000_000, 3))
+    out = []
+    for dev in (cuda, cuda, "cpu"):
+        xl = x.to(dev).requires_grad_(True)
+        idx = index.to(dev)
+        order, offsets = segment.sort_by_index(idx, 1_000_000)
+        y = segment.gather_rows(xl, idx, order, offsets)
+        out.append(torch.autograd.grad(y, xl, g.to(dev))[0].cpu())
+    assert torch.equal(out[0], out[1])
+    assert (out[0] - out[2]).abs().max().item() <= 1e-5
+
+
+def _mesh_bound_setup(dev, npt=3):
+    from frosting_tpu_torch.models import mesh_bound
+
+    grid, origin, spacing = _sphere_mesh()
+    v, f = marching.marching_tets(grid, 0.0, origin, spacing, max_slab_cubes=40_000)
+    v, f = v.float().numpy(), f.numpy()
+    cols = ((v + 1.5) / 3.0).astype(np.float32)
+    p, m = mesh_bound.init_mesh_bound(v, f, n_per_triangle=npt, vertex_colors=cols, device=dev)
+    rng = np.random.default_rng(2)
+    p.complex_rot = torch.from_numpy(rng.normal(size=p.complex_rot.shape).astype(np.float32)).to(dev)
+    p.plane_scales_log = p.plane_scales_log + torch.from_numpy(
+        rng.normal(0, 0.4, p.plane_scales_log.shape).astype(np.float32)).to(dev)
+    return p, m
+
+
+@pytest.mark.parametrize("learn_verts", [False, True], ids=["frozen_verts", "learn_verts"])
+def test_one_refined_sugar_step_on_the_card(cuda, learn_verts):
+    """A refined-SuGaR step on the card and on the CPU from one state: B1
+    and B2 launched once, the loss to 1e-5, the parameters under the rule of
+    test_one_sugar_step_on_the_card; with learned vertices, two steps on the
+    card bitwise equal."""
+    from frosting_tpu_torch.train import refined_sugar
+
+    cfg = refined_sugar.MeshBoundTrainConfig(learn_verts=learn_verts)
+    rcfg = RasterConfig(width=160, height=120, max_instances=1 << 20)
+    gt = torch.rand((3, 120, 160), generator=torch.Generator().manual_seed(0))
+    results = []
+    for dev in ("cpu", cuda, cuda):
+        p, m = _mesh_bound_setup(dev)
+        opt = refined_sugar.make_mesh_bound_optimizer(cfg, 3.5)
+        state = opt.init(refined_sugar.param_groups(p))
+        cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=dev)
+        launches = (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
+        out = refined_sugar.train_step(p, state, m, cam, gt.to(dev), opt, rcfg, cfg)
+        if dev != "cpu":
+            assert (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches) == (
+                launches[0] + 1, launches[1] + 1)
+        assert not bool(out["overflow"])
+        results.append((float(out["loss"]), refined_sugar.param_groups(p)))
+    (l_cpu, g_cpu), (l_gpu, g_gpu), (_l2, g_again) = results
+    assert np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    lrs = {"verts": 1.6e-4 * 3.5, "plane_scales_log": 5e-3, "complex_rot": 1e-3,
+           "opacities_raw": 0.05, "sh_dc": 2.5e-3, "sh_rest": 2.5e-3 / 20}
+    for name in lrs:
+        got, want = g_gpu[name].cpu(), g_cpu[name]
+        err = (got - want).abs()
+        off = err > 1e-5 + 1e-4 * want.abs()
+        assert off.float().mean().item() <= 0.01, (name, int(off.sum()))
+        assert err.max().item() <= 2 * lrs[name] + 1e-6, (name, err.max().item())
+        assert torch.equal(g_gpu[name], g_again[name]), name
+
+
+def test_kernels_on_refined_sugar_and_edited_inputs(cuda):
+    """B1 and B2 against their plain versions on the blend inputs of flat
+    mesh-bound Gaussians (the normal axis 1e-4 of the extent; B2 against
+    float64 beside the plain walk) and of an edited frosting (covariances
+    through cov3d_precomp, SH colours along rotated view directions), B2
+    bitwise equal to itself."""
+    from frosting_tpu_torch.models import editing, mesh_bound
+
+    p, m = _mesh_bound_setup(cuda)
+    cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1), device=cuda)
+    cfg = RasterConfig(width=333, height=197, max_instances=1 << 22)
+    p0, m0 = _init_frosting(cuda, _frosting_inputs())
+    bent = p0.shell_verts * torch.tensor([1.0, 1.3, 0.9], device=cuda)
+    eg = editing.adapt_frosting(p0, m0, bent)
+    dirs = eg.means - cam.cam_center
+    with torch.no_grad():
+        colors = torch.clamp(sh_ops_eval(eg, dirs) + 0.5, min=0.0)
+        cases = [
+            preprocess(*mesh_bound.activate_mesh_bound(p, m), cam, cfg),
+            preprocess(eg.means, torch.ones_like(eg.means),
+                       torch.nn.functional.pad(torch.ones_like(eg.means[:, :1]), (0, 3)),
+                       eg.opacities, eg.sh, cam, cfg, colors_precomp=colors,
+                       cov3d_precomp=eg.cov6),
+        ]
+    for flat, proj in zip((True, False), cases):
+        fields = pack_fields(proj).detach()
+        binned = bin_gaussians(proj.rect, proj.depths, proj.valid, cfg)
+        out = blend_cuda.blend_forward(fields, binned, cfg)
+        ref = blend_forward_torch(fields, binned, cfg)
+        err = (out - ref).abs()
+        assert (err > 1e-5 + 1e-5 * ref.abs()).float().mean().item() <= 1e-3
+        assert err.max().item() <= 1e-2 and torch.isfinite(out).all()
+        g = _cotangent(out)
+        rows = blend_cuda.blend_backward(fields, binned, cfg, out, g)
+        assert torch.equal(rows, blend_cuda.blend_backward(fields, binned, cfg, out, g))
+        plain = blend_backward_torch(fields, binned, cfg, out, g)
+        if not flat:
+            _assert_rows_match(rows, plain)
+            continue
+        # edge-on flat Gaussians: near-singular conics, where both float32
+        # walks round apart; each held against float64, the kernel at most
+        # twice as far off as the plain walk (chip_smoke.py
+        # compare_backward_float64 with vs_plain=None)
+        f64 = fields.double()
+        ref64 = blend_backward_torch(f64, binned, cfg, blend_forward_torch(f64, binned, cfg),
+                                     g.double())
+        scale = ref64.abs().amax(0).clamp_min(1e-30)
+
+        def off(x):
+            e = (x.double() - ref64).abs() / scale
+            return int((e > 1e-5 + 1e-5 * ref64.abs() / scale).sum()), e.max().item()
+
+        (k_off, k_max), (p_off, p_max) = off(rows), off(plain)
+        assert k_off <= max(2 * p_off, 1e-5 * rows.numel(), 18), (k_off, p_off)
+        assert k_max <= 2 * max(p_max, 1e-5), (k_max, p_max)
+
+
+def sh_ops_eval(eg, dirs):
+    from frosting_tpu_torch.ops import quat as quat_ops
+    from frosting_tpu_torch.ops import sh as sh_ops
+
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    return sh_ops.eval_sh(3, eg.sh, quat_ops.apply(quat_ops.conjugate(eg.sh_rotations), dirs))
+
+
+def test_bake_and_adaptation_on_the_card_equal_the_cpu(cuda):
+    """The texture bake (B1 once per view) on the card against the CPU: the
+    texel counts equal, the texels within 1e-2 (B1's stop flips) and 1e-5 on
+    all but 0.1%; the complex adaptation's fields within 1e-5 of their
+    largest magnitude and its SH rotations equal as rotations within 1e-5
+    (the card's batched SVD against LAPACK's)."""
+    from frosting_tpu_torch.extract import texture
+    from frosting_tpu_torch.models import editing
+
+    inputs = _frosting_inputs()
+    p0, m0 = _init_frosting("cpu", inputs)
+    bakes, edits, transforms = [], [], []
+    for dev in ("cpu", cuda):
+        p = frosting_trainer.with_groups(p0, {k: t.to(dev, copy=True) for k, t in
+                                              frosting_trainer.param_groups(p0).items()})
+        m = frosting_lib.make_meta(m0.faces, m0.cell_idx, m0.cell_bounds,
+                                   n_verts=p.shell_verts.shape[0], device=dev)
+        cams = synthetic.camera_ring(n_cams=3, radius=3.5, device=dev)
+        rcfg = RasterConfig(width=160, height=120, max_instances=1 << 20)
+        launches = blend_cuda.blend_forward.launches
+        with torch.no_grad():
+            model = frosting_lib.to_gaussians(p, m)
+        stats = {}
+        tex, _uvs = texture.bake_texture(
+            p.shell_verts, m.faces, lambda c: torch.clamp(render(*model, c, rcfg).image, 0, 1),
+            cams, rcfg, 256, None, stats)
+        if dev != "cpu":
+            assert blend_cuda.blend_forward.launches == launches + 3
+        bakes.append((tex, stats["texel_counts"]))
+        new = p.shell_verts * torch.tensor([1.0, 1.3, 0.9], device=dev)
+        edits.append(editing.adapt_frosting(p, m, new))
+        factor = editing.thickness_rescale_factors(p.shell_verts, new, m.faces)
+        edited = dataclasses.replace(p, shell_verts=new, inner_dist=p.inner_dist * factor,
+                                     outer_dist=p.outer_dist * factor)
+        transforms.append((m, editing.cell_affine_transforms(
+            frosting_lib.cell_corners(p, m.faces), frosting_lib.cell_corners(edited, m.faces))))
+    (t_c, n_c), (t_g, n_g) = bakes
+    np.testing.assert_array_equal(n_g, n_c)
+    err = np.abs(t_g - t_c)
+    assert err.max() <= 1e-2 and (err > 1e-5).mean() <= 1e-3
+    for k, tol in (("means", 1e-5), ("cov6", 1e-4), ("opacities", 1e-5)):
+        a, b = getattr(edits[1], k).cpu(), getattr(edits[0], k)
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), k
+    # the polar factor moves by at most 2 ||dA||_F / (s2 + s3) (its two
+    # smallest singular values) when its matrix moves by dA: each cell's
+    # rotation is held to that bound of the two devices' transforms
+    (m, cc), (_m, cg) = transforms
+    s = torch.linalg.svdvals(cc)
+    bound = 2 * torch.linalg.norm(cg.cpu() - cc, dim=(1, 2)) / (s[:, 1] + s[:, 2]) + 1e-6
+    qa, qb = edits[1].sh_rotations.cpu(), edits[0].sh_rotations
+    err = torch.minimum((qa - qb).abs().amax(-1), (qa + qb).abs().amax(-1))
+    assert bool((err <= bound[m.cell_idx.cpu()]).all()), (err - bound[m.cell_idx.cpu()]).max()

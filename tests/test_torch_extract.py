@@ -19,6 +19,7 @@ from frosting_tpu_torch.extract import marching, meshclean, poisson
 from frosting_tpu_torch.extract.shell import auto_poisson_resolution
 from frosting_tpu_torch.ops import knn
 from tests.test_mesh import icosphere
+from tests.test_torch_mesh import JAX_RASTERIZE_JIT
 
 
 def _noisy_sphere_grid(n=33, seed=0):
@@ -143,10 +144,15 @@ def test_nearest_distances_equal_ckdtree_inside_a_closed_surface():
 
 
 @pytest.mark.parametrize("threshold", [0.001, 0.5], ids=["keep-visible", "cull-most"])
-def test_visibility_cull_components_equals_jax(threshold):
+def test_visibility_cull_components_equals_jax(threshold, monkeypatch):
     """The sphere and a second one beside it: components seen by the
-    cameras; the port's per-label bincount keeps what JAX's loop keeps."""
+    cameras; the port's per-label bincount keeps what JAX's loop keeps.
+    (JAX's mesh rasterizer runs jitted, one compile in place of its eager
+    ops' many: the same pix_to_face.)"""
+    from frosting_tpu.ops import mesh_raster as jax_mesh_raster
     from frosting_tpu.raster import RasterConfig as JaxRasterConfig
+
+    monkeypatch.setattr(jax_mesh_raster, "rasterize_mesh", JAX_RASTERIZE_JIT)
     from frosting_tpu.scene import synthetic as jax_synthetic
     from frosting_tpu_torch.raster import RasterConfig
     from frosting_tpu_torch.scene import synthetic

@@ -21,6 +21,7 @@ import torch
 from frosting_tpu import pipeline as jax_pipeline
 from frosting_tpu.models import frosting as jax_frosting
 from frosting_tpu.ops import mesh as jax_mesh
+from frosting_tpu.ops import mesh_raster as jax_mesh_raster
 from frosting_tpu.raster import RasterConfig as JaxConfig
 from frosting_tpu.scene import synthetic as jax_synthetic
 from frosting_tpu.scene.gaussians import GaussianParams as JaxGaussianParams
@@ -29,6 +30,7 @@ from frosting_tpu.train import frosting_trainer as jax_trainer
 from frosting_tpu_torch import pipeline, stages_cli
 from frosting_tpu_torch.cameras import camera_from_numpy
 from frosting_tpu_torch.models import frosting
+from frosting_tpu_torch.ops import mesh as mesh_ops
 from frosting_tpu_torch.raster import RasterConfig, render
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
@@ -36,6 +38,7 @@ from frosting_tpu_torch.train import checkpoint, frosting_trainer
 from frosting_tpu_torch.utils import image as image_io
 from frosting_tpu_torch.utils import ply as ply_io
 from tests.test_mesh import icosphere
+from tests.test_torch_mesh import JAX_RASTERIZE_JIT
 from tests.test_torch_stages_cli import _write_scene
 
 torch.set_num_threads(1)
@@ -140,7 +143,10 @@ def views():
     gt = synthetic.render_gt_images(gt_model, cams, RasterConfig(**RASTER), np.zeros(3, np.float32))
     jcfg = JaxConfig(backend="jax", bwd_sort_bf16=False, **RASTER)
     jp, jm = _jax_state(*_state())
-    vis = jax_trainer.precompute_visibility(jp, jm, jcams[:1], jcfg)
+    # it reads only pix_to_face: the jitted rasterizer (tests/test_torch_mesh.py)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_mesh_raster, "rasterize_mesh", JAX_RASTERIZE_JIT)
+        vis = jax_trainer.precompute_visibility(jp, jm, jcams[:1], jcfg)
     return jcams, cams, gt, jcfg, vis
 
 
@@ -251,7 +257,7 @@ def test_train_steps_match_jax(views, learn_shell):
             jcfg_t, 3, jnp.asarray(nc))
         aux = frosting_trainer.train_step(
             p, state, m, cams[ci], torch.from_numpy(gt[ci]), torch.from_numpy(mask), opt,
-            rcfg, cfg, 3, torch.from_numpy(nc))
+            rcfg, cfg, 3, mesh_ops.pair_incidence(torch.from_numpy(nc), len(jm.faces)))
         assert not bool(aux["overflow"]) and not bool(jaux["overflow"])
         np.testing.assert_allclose(float(aux["loss"]), float(jaux["loss"]), rtol=1e-5)
         got, want = _groups_np(p), _jax_groups_np(jp)

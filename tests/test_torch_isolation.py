@@ -67,10 +67,16 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.ops.mesh, frosting_tpu_torch.ops.mesh_raster\n"
         "import frosting_tpu_torch.models.frosting, frosting_tpu_torch.train.frosting_trainer\n"
         "import frosting_tpu_torch.pipeline, frosting_tpu_torch.ops.segment\n"
-        "from frosting_tpu_torch import stages_cli\n"
+        "import frosting_tpu_torch.extract.texture, frosting_tpu_torch.models.mesh_bound\n"
+        "import frosting_tpu_torch.train.refined_sugar, frosting_tpu_torch.models.editing\n"
+        "from frosting_tpu_torch import blender_cli, stages_cli\n"
         "assert stages_cli.build_parser().parse_args(['train-sugar', '-s', 'x']).device == 'cuda'\n"
         "assert stages_cli.build_parser().parse_args(['extract-shell', '-s', 'x']).device == 'cuda'\n"
         "assert stages_cli.build_parser().parse_args(['train-frosting', '-s', 'x']).device == 'cuda'\n"
+        "for cmd in ('train-refined-sugar', 'extract-texture', 'render', 'train-gs'):\n"
+        "    assert stages_cli.build_parser().parse_args([cmd, '-s', 'x']).device == 'cuda'\n"
+        "assert blender_cli.build_parser().parse_args(\n"
+        "    ['--package', 'p', '--checkpoints', 'c', '--out', 'o']).device == 'cuda'\n"
         "assert not any(m == 'frosting_tpu' or m.startswith('frosting_tpu.')\n"
         "               for m in sys.modules)\n"
     )

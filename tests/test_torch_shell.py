@@ -21,6 +21,7 @@ from scipy.spatial import cKDTree
 
 from frosting_tpu.extract import shell as jax_shell
 from frosting_tpu.models import fields as jax_fields
+from frosting_tpu.ops import mesh_raster as jax_mesh_raster
 from frosting_tpu.raster import RasterConfig as JaxRasterConfig
 from frosting_tpu.scene import synthetic as jax_synthetic
 from frosting_tpu_torch import stages_cli
@@ -29,6 +30,7 @@ from frosting_tpu_torch.models import fields
 from frosting_tpu_torch.raster import RasterConfig
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
+from tests.test_torch_mesh import JAX_RASTERIZE_JIT
 
 W, H, N_CAMS = 64, 48, 3
 POISSON_RES = 40
@@ -77,14 +79,17 @@ CONFIGS = {
 @pytest.fixture(scope="module")
 def jax_reference():
     """{method: (verts, faces, aux)} of the JAX extract_shell, computed on
-    first use."""
+    first use (its mesh rasterizer jitted: tests/test_torch_mesh.py)."""
     cache = {}
 
     def get(method):
         if method not in cache:
             (jg, _tg), (jrcfg, _r), (jcams, _c) = _both(_sphere()), _rcfgs(), _cams()
-            cache[method] = jax_shell.extract_shell(
-                *jg, jcams, jrcfg, jax_shell.ShellConfig(**CONFIGS[method]))
+            # its visibility culling reads only pix_to_face: the jitted rasterizer
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jax_mesh_raster, "rasterize_mesh", JAX_RASTERIZE_JIT)
+                cache[method] = jax_shell.extract_shell(
+                    *jg, jcams, jrcfg, jax_shell.ShellConfig(**CONFIGS[method]))
         return cache[method]
 
     return get
