@@ -61,19 +61,47 @@ Phases (any failure raises and exits nonzero):
      inputs, with the transmittance cotangent that depth / acc gives.
      These stage 1-2 commands and timings run in a thread beside the first
      stage-3 run's host QEM (below), once the ablation runs have ended,
-     in a directory of their own; their launches are the counts' rise over
-     that thread's run, in which nothing else launches B1 or B2.
+     after paths 3-7, in a directory of their own; their launches are the
+     counts' rise over their run, in which nothing else launches B1 or B2.
+     The same thread then writes the coloured sphere's scene (below) and
+     runs the pipeline paths on it (phase_pipelines), each path's launches
+     the counts' rise over it (nothing in that thread resets the counts, the
+     peak memory statistics, the thread count or the environment, which the
+     QEM's run reads or shares): cli.main --tiny --eval
+     --export-obj (all six stages fresh, stage 3 included, on the scene with
+     its point cloud cut to the preset's capacity of 2048; every output read
+     back, 4096 Frosting Gaussians, finite held-out metrics (LPIPS with
+     the weights below), B1 and B2 as
+     many times as the stages' steps, views and test views predict); the
+     config cli builds for --eval --export-obj (1920x1080, 7 train views,
+     capacity 2^19 with 400k points, 2M Frosting Gaussians; 3DGS 30, SuGaR
+     9001-9021, refinement 100 iterations; the stages path's instance
+     capacity) through run_pipeline with a cache whose shell.npz holds a
+     998,286-vertex UV sphere (stage 3 resumed), then the cli's writer
+     (PLYs, frosting.npz, the textured mesh, metrics.json with LPIPS from
+     seeded VGG16-shaped weights): launches per stage as predicted, no step
+     overflowing, held-out PSNR above the initialised model's, every file
+     read back, seconds by stage and export; a second run_pipeline from
+     that cache (the three resume lines, no launch before stage 5, refined
+     params bitwise equal to the first run's); LPIPS on the held-out view on
+     the card against the CPU (a process of its own; rtol 2e-4), timed;
+     stages_cli convert without colmap (a process of its own whose PATH is
+     an empty directory; the JAX package's message); a 1080p baseline JPEG of
+     the held-out view (a numpy encoder with the Annex K tables) decoded,
+     timed and held to its source above 30 dB PSNR.
      Stage 3 on the same scene (phase_extract): 1M Gaussians on the unit
-     sphere as sugar.ply, stages_cli extract-shell --both-poly at the
-     defaults (B1 once per view; both meshes within their vertex budgets,
-     finite, median radius in a band; the parts' times and peak device
-     memory logged), a second run at --low-poly (its own process) whose
-     shell.ply equals the first's shell_lowpoly.ply byte for byte, and
-     --method centers (Poisson 256^3) / marching within their bands (in a
-     process of their own, started when the first run enters its host
-     QEM).
+     sphere as sugar.ply, stages_cli extract-shell at the defaults (B1 once
+     per view; the mesh within its 1M vertex budget, finite, median radius
+     in a band; the parts' times and peak device memory logged), a second
+     run with --both-poly (its own process, started first, waited for
+     before train-refined-sugar) whose shell.ply equals the first's byte
+     for byte and whose shell_lowpoly.ply lies within the 200k budget and
+     the band, and --method centers (Poisson 256^3) / marching within their
+     bands (in a process of their own, started when the first run enters
+     its host QEM).
      Stages 4-5 (phase_frosting): the sphere, coloured by position, rendered
-     by B1 from the 8 stage views as a second COLMAP scene; stages_cli
+     by B1 from the 8 stage views as a second COLMAP scene (written beside
+     the QEM, above); stages_cli
      train-frosting at its defaults (2M Gaussians) on the surface method's
      1M-vertex shell.ply, 100 iterations: B1 and B2 launched exactly once
      per iteration, no step overflowing, frosting.npz loading back to the
@@ -90,7 +118,10 @@ Phases (any failure raises and exits nonzero):
      timed, full and culled (at the derived capacity), and B1 and B2 held
      against their plain versions on both views' blend inputs, B2 with the
      loss's cotangent; two learned-shell steps from one state bitwise
-     equal (and, in the stages timings, two sdf draws with one seed).
+     equal (and, in the stages timings, two sdf draws with one seed);
+     stages_cli metrics on the refined frosting.npz (B1 once per view,
+     finite LPIPS, metrics.json read back). FROSTING_TPU_LPIPS_WEIGHTS
+     names seeded VGG16-shaped weights for all of path 8.
      Stage 6 and editing (phase_texture, phase_refined_sugar,
      phase_blender), on the frosting phase's scene and artifacts:
      stages_cli extract-texture at 1024^2 (B1 once per view; a second run's
@@ -102,15 +133,19 @@ Phases (any failure raises and exits nonzero):
      blender_cli on a 1M-vertex, two-bone package over 4 frames, complex
      adaptation with occlusion culling and simple adaptation (B1 once per
      frame; frame 0 against the in-process render; adaptation, SVD and
-     render timed per frame).
-The main paths 4, 5 and 7 reset the kernels' launch counts just before
-and read them just after; each train-frosting, extract-texture,
-train-refined-sugar and blender_cli run is read on its own in the same
-way. The stage 1-2 commands of path 8 run beside stage 3's host QEM, so
-theirs are the counts' rise over their run, and the first extract-shell
-run's are the counts at the start of its QEM (it launches B1 only before
-it), checked against the counts at its end. The line before the last is the JSON
-kernels record; the last line is {"ok": true, "device": {...}}.
+     render timed per frame). train-refined-sugar runs last, once the
+     second stage-3 run has written its 200k-vertex mesh.
+Paths 3-7 do not wait for the stages path: they run first in the thread
+beside stage 3's host QEM (phase_preamble), where the card is otherwise
+idle, then the stage 1-2 commands and the pipeline paths of path 8. Each
+of these paths' launches is the counts' rise over its run (nothing in the
+thread resets the counts), and the first extract-shell run's are the
+counts at the start of its QEM (it launches B1 only before it), checked
+against the counts at its end less the thread's launches. Each later
+train-frosting, extract-texture, train-refined-sugar, blender_cli and
+metrics run resets the counts just before it and reads them just after.
+The line before the last is the JSON kernels record; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -124,6 +159,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -164,7 +200,8 @@ from frosting_tpu_torch.raster.render import (
     count_instances,
     sum_rows_by_gaussian,
 )
-from frosting_tpu_torch import blender_cli, stages_cli
+from frosting_tpu_torch import blender_cli, cli, stages_cli
+from frosting_tpu_torch import metrics as metrics_lib
 from frosting_tpu_torch import pipeline as pipeline_lib
 from frosting_tpu_torch.models import editing as editing_lib
 from frosting_tpu_torch.models import frosting as frosting_lib
@@ -187,6 +224,7 @@ from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import image as image_io
 from frosting_tpu_torch.utils import ply as ply_io
 from frosting_tpu_torch.utils import viewer
+from frosting_tpu_torch.utils.profiling import PartTimes
 
 # The card's peak rates are in frosting_tpu_torch/bench/common.py.
 # Per evaluated (instance, pixel) pair the forward blend needs at least dx,
@@ -264,23 +302,35 @@ CENTERS_RADIUS = (0.97, 1.05)
 MARCHING_RADIUS = (0.99, 1.06)
 ABLATIONS = (("centers", CENTERS_RADIUS, ["--poisson-resolution", str(CENTERS_POISSON)]),
              ("marching", MARCHING_RADIUS, ["--marching-resolution", "256"]))
-# The ablation runs' process: argv[1] is a JSON list of (common arguments,
-# method arguments); one "ABLATION {...}" line per run.
-_ABLATION_CODE = """
+# extract-shell runs in a process of their own (the second stage-3 run and
+# the ablation runs): argv[1] is a JSON list of (label, arguments); one
+# "EXTRACT {...}" line per run, its result with the label.
+_EXTRACT_CODE = """
 import json, sys, time
 import torch
 from frosting_tpu_torch import stages_cli
 cuda = torch.cuda.is_available()
-for common, extra in json.loads(sys.argv[1]):
+for label, argv in json.loads(sys.argv[1]):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = stages_cli.main(["extract-shell", *common, *extra])
+    res = stages_cli.main(["extract-shell", *argv])
     if cuda:
         torch.cuda.synchronize()
-    res.update(method=extra[1], command_s=time.perf_counter() - t0,
+    res.update(label=label, command_s=time.perf_counter() - t0,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
-    print("ABLATION " + json.dumps(res), flush=True)
+    print("EXTRACT " + json.dumps(res), flush=True)
+"""
+# LPIPS on the CPU in a process of its own: argv[1:4] are the weights' npz
+# and the two images' .npy files; prints the value.
+_LPIPS_CPU_CODE = """
+import sys
+import numpy as np, torch
+torch.set_num_threads(4)
+from frosting_tpu_torch import metrics
+w, a, b = sys.argv[1:4]
+print(float(metrics.LPIPS(w, device="cpu")(torch.from_numpy(np.load(a)),
+                                           torch.from_numpy(np.load(b)))))
 """
 # Stages 4-5 on that known answer: the sphere's Gaussians coloured by
 # position (SH DC (mean + 1.5) / 3, as tests/test_frosting.py colours them)
@@ -313,6 +363,26 @@ BLENDER_FRAMES = 4
 BLENDER_MAX_DEG = 30.0  # bone "bend" turns the upper hemisphere up to this
 BLENDER_BAND = 0.2  # its weight ramps over |z| < BLENDER_BAND
 BLENDER_EYE = (0.9, -3.2, 1.1)  # the static camera, looking at the origin
+# The pipeline paths (cli, run_pipeline), on the coloured sphere's scene with
+# its point cloud cut to the capacities: the --tiny preset's 2048 and, under
+# the default 2^19, CLI_POINTS for the full-width run
+CLI_TINY_POINTS = 2048
+CLI_POINTS = 400_000
+# The full-width run's iterations (cut as the stages path cuts them); SuGaR
+# runs its sdf phase past the hard prune at 9000, which would empty a
+# 30-iteration 3DGS model (opacities ~0.1 against the prune's 0.5): the
+# entropy phase and the prune run in the --tiny run
+PIPE_GS_ITERS = 30
+PIPE_SUGAR = (9001, 9021)
+PIPE_REFINE_ITERS = 100
+# stage 3 resumed from a shell.npz: a unit UV sphere of 998,286 vertices
+UV_LAT, UV_LON = 707, 1414
+LPIPS_RTOL = 2e-4  # the card against the CPU (the JAX package's test tolerance)
+JPEG_PSNR = 30.0  # dB, a 1080p view through the Annex K tables and back
+# stages_cli convert without colmap: the JAX package's message
+CONVERT_MESSAGE = ("convert requires the `colmap` binary on PATH (feature extraction + "
+                   "mapper), which this environment does not ship. Provide a scene with "
+                   "sparse/0 instead.")
 DEV = "cuda"
 T_START = time.perf_counter()
 
@@ -649,8 +719,7 @@ def phase_training(model, rcfg):
         lines.append(line)
         log("  " + line)
 
-    blend_cuda.blend_forward.launches = 0
-    blend_cuda.blend_backward.launches = 0
+    before_counts = counts_now()
     t0 = time.time()
     state, history = gs_trainer.train(
         cams, gt_imgs, pts, cols, TRAIN_EXTENT, rcfg, tcfg, seed=0,
@@ -658,10 +727,7 @@ def phase_training(model, rcfg):
     )
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {
-        "blend_forward": blend_cuda.blend_forward.launches,
-        "blend_backward": blend_cuda.blend_backward.launches,
-    }
+    launches = dict(zip(("blend_forward", "blend_backward"), rise(before_counts)))
     after = gs_trainer.evaluate(state, cams, gt_imgs, rcfg, tcfg)
     log(f"training: {TRAIN_ITERS} iterations at {MAIN_W}x{MAIN_H} from {len(pts)} "
         f"points in {wall:.1f} s (init included); it/s per log interval "
@@ -860,18 +926,17 @@ PROBE_COUNTERS = {
 
 def phase_bench():
     """The bench main path: the port's four measurement entry points, in
-    process, at their full sizes, with every kernel's launch count reset
-    just before and read just after (a CUDA graph's replays re-run the
-    launches captured from its wrapper calls and are not counted). Returns
+    process, at their full sizes, each kernel's launches the rise of its
+    count over the path (a CUDA graph's replays re-run the launches
+    captured from its wrapper calls and are not counted). Returns
     (launches, the probes' times in ms)."""
-    for fn in PROBE_COUNTERS.values():
-        fn.launches = 0
+    before = {name: fn.launches for name, fn in PROBE_COUNTERS.items()}
     times = perf_vpu_dtype.run(DEV, log=log)
     times.update(perf_scan_variants.run(DEV, log=log))
     log(json.dumps(bench_main.run(DEV)))
     log(json.dumps(bench_1080p.run(DEV, log=log)))
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in PROBE_COUNTERS.items()}
+    launches = {name: fn.launches - before[name] for name, fn in PROBE_COUNTERS.items()}
     log(f"bench path launches {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -1035,15 +1100,17 @@ def host_ms(fn, reps):
     return statistics.median(out)
 
 
-def phase_stages(raw, model):
+def phase_stages(raw, model, preamble):
     """The stages main path: a COLMAP scene of the 1M model written to disk;
-    stage 3 (phase_extract) on it, and beside that run's host QEM the
-    stage 1-2 commands through stages_cli in process (train-gs, render,
-    train-sugar for each method, in a directory of their own), then their
-    timings and the depth-render check of B1 and B2; then stages 4-5
-    (phase_frosting), stage 6 and editing. Returns (launches per kernel of
-    the stage 1-2 commands, of the first extract-shell, of each later
-    command, timings)."""
+    stage 3 (phase_extract) on it, and beside that run's host QEM, in a
+    thread, first preamble(raw) (paths 3-7), then the stage 1-2 commands
+    through stages_cli in process (train-gs, render, train-sugar for each
+    method, in a directory of their own), their timings and the
+    depth-render check of B1 and B2, and the pipeline paths; then stages
+    4-5 (phase_frosting), stage 6 and editing, train-refined-sugar last
+    (it takes the second stage-3 run's 200k mesh). Returns (preamble's
+    result, launches per kernel of the stage 1-2 commands, of the first
+    extract-shell, of each later command, timings)."""
     cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
                         max_instances=STAGE_MAX_INSTANCES)
@@ -1053,6 +1120,11 @@ def phase_stages(raw, model):
         out_gs = os.path.join(tmp, "stages")
         for d in (out, out_gs):
             os.makedirs(d)
+        # seeded LPIPS weights for every metrics.json of this phase (cli
+        # --tiny, the full-width writer, stages_cli metrics), named before
+        # any thread or process of the phase starts and unset at its end
+        weights = synthetic.write_lpips_weights(os.path.join(tmp, "lpips_weights.npz"))
+        os.environ["FROSTING_TPU_LPIPS_WEIGHTS"] = weights
         t0 = time.time()
         paths = synthetic.write_colmap_scene(scene_dir, model, cams, rcfg)
         log(f"stages: COLMAP scene of {len(cams)} PNG views at {MAIN_W}x{MAIN_H} and "
@@ -1150,31 +1222,58 @@ def phase_stages(raw, model):
             timings.update(stages_timings(os.path.join(out_gs, "gs.ply"), scene, gt0))
             return launches
 
+        def beside_qem():
+            """Paths 3-7, the stage 1-2 commands, then the coloured sphere's
+            scene and the pipeline paths on it: nothing of stage 3's."""
+            pipes["preamble"] = preamble(raw)
+            torch.cuda.empty_cache()
+            stamp("stages 1-2 (beside the QEM)")
+            launches = stages_1_2()
+            torch.cuda.empty_cache()
+            stamp("the coloured sphere's scene and the pipeline paths (beside the QEM)")
+            pipes["scene_dir"] = write_sphere_scene(tmp)
+            pipes["launches"], timings["pipelines"] = phase_pipelines(
+                tmp, pipes["scene_dir"], weights)
+            torch.cuda.empty_cache()
+            stamp("the work beside the QEM ends")
+            return launches
+
         torch.cuda.empty_cache()
-        stamp("stage 3 (extract-shell), with stages 1-2 beside its host QEM")
-        extract_launches, timings["extract_shell"], launches = phase_extract(
-            scene_dir, out, common, len(scams), stages_1_2)
+        stamp("stage 3 (extract-shell), with paths 3-7, stages 1-2 and the pipeline paths "
+              "beside its host QEM")
+        pipes = {}
+        extract_launches, timings["extract_shell"], launches, finish = phase_extract(
+            scene_dir, out, common, len(scams), beside_qem)
         del scene
-        torch.cuda.empty_cache()
-        stamp("stages 4-5 (train-frosting)")
-        frosting_launches, timings["frosting"] = phase_frosting(
-            tmp, os.path.join(out, "sugar.ply"), os.path.join(out, "shell_surface.ply"))
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        stamp("stage 6 (extract-texture)")
-        frosting_launches["texture"], timings["texture"] = phase_texture(tmp)
-        torch.cuda.empty_cache()
+        try:
+            torch.cuda.empty_cache()
+            stamp("stages 4-5 (train-frosting)")
+            frosting_launches, timings["frosting"] = phase_frosting(
+                tmp, pipes["scene_dir"], os.path.join(out, "sugar.ply"),
+                os.path.join(out, "shell_surface.ply"))
+            frosting_launches.update(pipes["launches"])
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            stamp("stage 6 (extract-texture)")
+            frosting_launches["texture"], timings["texture"] = phase_texture(tmp)
+            torch.cuda.empty_cache()
+            stamp("blender_cli")
+            blender, timings["blender"] = phase_blender(tmp)
+            frosting_launches.update({f"blender_{k}": v for k, v in blender.items()})
+            torch.cuda.empty_cache()
+            stamp("the second stage-3 run (--both-poly)")
+            timings["extract_shell"]["both_poly"] = finish()
+        except BaseException:
+            finish.kill()
+            raise
         stamp("train-refined-sugar")
         frosting_launches["refined_sugar"], timings["refined_sugar"] = phase_refined_sugar(
             tmp, os.path.join(out, "sugar.ply"), os.path.join(out, "shell_lowpoly.ply"))
-        torch.cuda.empty_cache()
-        stamp("blender_cli")
-        blender, timings["blender"] = phase_blender(tmp)
-        frosting_launches.update({f"blender_{k}": v for k, v in blender.items()})
         timings["stage6_and_editing_s"] = time.perf_counter() - t0
-        log(f"extract-texture, train-refined-sugar and blender_cli phases: "
-            f"{timings['stage6_and_editing_s']:.1f} s")
-    return launches, extract_launches, frosting_launches, timings
+        log(f"extract-texture, blender_cli and train-refined-sugar phases (the wait for the "
+            f"second stage-3 run included): {timings['stage6_and_editing_s']:.1f} s")
+        del os.environ["FROSTING_TPU_LPIPS_WEIGHTS"]
+    return pipes["preamble"], launches, extract_launches, frosting_launches, timings
 
 
 def sphere_raw(n, seed=0):
@@ -1199,31 +1298,49 @@ def median_radius(path):
     return len(v), len(f), float(np.median(np.linalg.norm(v, axis=1)))
 
 
+def _extract_results(lines):
+    """{label: result} of the EXTRACT lines of _EXTRACT_CODE's output."""
+    return {r["label"]: r for r in (json.loads(line[len("EXTRACT "):])
+                                    for line in lines if line.startswith("EXTRACT "))}
+
+
+def _log_extract(label, res):
+    log(f"extract-shell {label}: {res['command_s']:.1f} s, peak device memory "
+        f"{res['peak_gib']:.2f} GiB, Poisson {res['poisson_resolutions']}; parts (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
+
+
 def phase_extract(scene_dir, out, common, n_views, beside_qem):
     """Stage 3 on the stages path's scene: the known-answer sphere as
-    sugar.ply, then extract-shell --both-poly at full width in process (B1
-    launched once per view, its parts' times, peak device memory, both
-    meshes' counts and radii). A second run of the command, at --low-poly
-    in a process of its own, must write a shell.ply equal byte for byte to
-    the first run's shell_lowpoly.ply (the same Poisson mesh decimated to
-    the same budget); it starts first, and the first run starts once the
-    second has made its Poisson mesh, so that the second's quantile
-    cleaning (device) runs beside the first's query KNN, density and
-    Poisson, and its host QEM beside the rest. --method centers at Poisson
-    256^3 and --method marching at 256^3 then run in a third process, each
-    in a directory of its own, started when the first run enters its host
-    QEM (its first call of meshclean.decimate), by when the second is in
-    its own: their device parts (seconds) share no device time with the
-    stage-3 runs' parts before QEM, and their host QEM runs beside the
-    others' (the start is logged). beside_qem (work that needs nothing of
-    stage 3: the stage 1-2 commands and their timings) runs in a thread of
-    this process from the moment the ablation runs end, which is inside
-    the first run's host QEM, when the card is otherwise idle; the first
-    run launches B1 only before its QEM, so its launches are the counts at
-    the QEM's start, and the counts at its end must be those plus the
-    thread's own. The surface method's shell.ply is kept as
-    shell_surface.ply for stages 4-5. Returns (launches of the first
-    command, results, beside_qem's result)."""
+    sugar.ply, then extract-shell at full width in process (the 1M budget:
+    B1 launched once per view, its parts' times, peak device memory, the
+    mesh's counts and radius). A second run, extract-shell --both-poly in a
+    process of its own, must write a shell.ply equal byte for byte to the
+    first run's (the same Poisson mesh decimated to the same budget) and a
+    shell_lowpoly.ply within the 200k budget, which train-refined-sugar
+    takes. The second run starts first, and the first once the second has
+    made its Poisson mesh, so that the second's quantile cleaning (device)
+    runs beside the first's query KNN, density and Poisson, and its host QEM
+    (both budgets) beside the rest. Its 200k budget is the longest QEM of
+    the script: the first run, with the 1M budget alone, ends well before
+    it, and stages 4-5, stage 6 and blender_cli run meanwhile; the returned
+    `finish` waits for the second run and checks it, before
+    train-refined-sugar. --method centers at Poisson 256^3 and --method
+    marching at 256^3 run in a third process, each in a directory of its
+    own, started when the first run enters its host QEM (its call of
+    meshclean.decimate), by when the second is in its own: their device
+    parts (seconds) share no device time with the stage-3 runs' parts
+    before QEM, and their host QEM runs beside the others' (the start is
+    logged). beside_qem (work that needs nothing of stage 3: the stage 1-2
+    commands and their timings, the pipeline paths) runs in a thread of
+    this process from the moment the ablation runs end, which is inside the
+    first run's host QEM, when the card is otherwise idle but for the
+    second run's host QEM; the first run launches B1 only before its QEM,
+    so its launches are the counts at the QEM's start, and the counts at
+    its end must be those plus the thread's own. The first run's shell.ply
+    is kept as shell_surface.ply for stages 4-5. Returns (launches of the
+    first command, results, beside_qem's result, finish); finish() returns
+    the second run's results and leaves its shell_lowpoly.ply in `out`."""
     gauss_lib.save_ply(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device="cpu"),
                        os.path.join(out, "sugar.ply"))
     out_b = out + "_again"
@@ -1232,50 +1349,45 @@ def phase_extract(scene_dir, out, common, n_views, beside_qem):
         os.makedirs(d)
         shutil.copy(os.path.join(out, "sugar.ply"), d)
     shell_ply = os.path.join(out, "shell.ply")
-    low_ply = os.path.join(out, "shell_lowpoly.ply")
     results = {}
-
-    def run(label, extra):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = stages_cli.main(["extract-shell", *common, *extra])
-        torch.cuda.synchronize()
-        res["command_s"] = time.perf_counter() - t0
-        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        results[label] = res
-        log(f"extract-shell {' '.join(extra)}: {res['command_s']:.1f} s, peak device memory "
-            f"{res['peak_gib']:.2f} GiB, Poisson {res['poisson_resolutions']}; parts (ms): "
-            + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
-        return res
 
     common_b = [out_b if a == out else a for a in common]
     ablation_log = out + "_ablations.log"
-    ablation_argv = [sys.executable, "-c", _ABLATION_CODE, json.dumps(
-        [([out_d if a == out else a for a in common], ["--method", method, *extra])
+    ablation_argv = [sys.executable, "-c", _EXTRACT_CODE, json.dumps(
+        [(method, [*[out_d if a == out else a for a in common], "--method", method, *extra])
          for (method, _band, extra), out_d in zip(ABLATIONS, ablation_dirs.values())])]
     root = os.path.dirname(os.path.abspath(__file__))
     again = subprocess.Popen(
-        [sys.executable, "-m", "frosting_tpu_torch.stages_cli", "extract-shell", *common_b,
-         "--low-poly"],
+        [sys.executable, "-c", _EXTRACT_CODE,
+         json.dumps([("--both-poly", [*common_b, "--both-poly"])])],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     procs = {"again": again}
-    lock = threading.Lock()  # the first run calls decimate from a thread per budget
+    # the second run's output, read by a thread of its own so that its pipe
+    # never fills while the main thread is busy
+    again_lines, poisson_done = [], threading.Event()
+
+    def read_again():
+        for line in again.stdout:
+            again_lines.append(line.rstrip())
+            if line.startswith("[shell/all] poisson res"):
+                poisson_done.set()
+        poisson_done.set()
+
+    reader = threading.Thread(target=read_again, daemon=True)
+    reader.start()
+    lock = threading.Lock()
     decimate = meshclean.decimate
 
     side = {}
-
-    def counts():
-        return (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
 
     def run_beside_qem():
         try:
             procs["ablations"].wait()
             side["start_s"] = time.perf_counter() - t_first
-            before = counts()
+            before = counts_now()
             side["result"] = beside_qem()
             torch.cuda.synchronize()
-            side["launches"] = tuple(a - b for a, b in zip(counts(), before))
+            side["launches"] = tuple(a - b for a, b in zip(counts_now(), before))
             side["end_s"] = time.perf_counter() - t_first
         except BaseException as e:  # re-raised by the main thread
             side["error"] = e
@@ -1286,7 +1398,7 @@ def phase_extract(scene_dir, out, common, n_views, beside_qem):
         with lock:
             if "ablations" not in procs:
                 results["ablations_start_s"] = time.perf_counter() - t_first
-                results["launches_before_qem"] = counts()
+                results["launches_before_qem"] = counts_now()
                 results["peak_gib_before_qem"] = torch.cuda.max_memory_allocated() / 2**30
                 with open(ablation_log, "w") as fh:
                     procs["ablations"] = subprocess.Popen(
@@ -1296,20 +1408,32 @@ def phase_extract(scene_dir, out, common, n_views, beside_qem):
                 side["thread"].start()
         return decimate(*args, **kwargs)
 
+    def kill_all():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
     try:
         t0 = time.perf_counter()
-        for line in again.stdout:
-            log(f"  [second run] {line.rstrip()}")
-            if line.startswith("[shell/all] poisson res"):
-                break
-        else:
+        poisson_done.wait()
+        for line in again_lines:
+            log(f"  [second run] {line}")
+        if again.poll() is not None:
             raise AssertionError(f"the second extract-shell ended early ({again.wait()})")
         log(f"second run's Poisson mesh done in {time.perf_counter() - t0:.1f} s")
-        blend_cuda.blend_forward.launches = 0
-        blend_cuda.blend_backward.launches = 0
+        shown = len(again_lines)
+        reset_counts()
         meshclean.decimate = start_ablations_then_decimate
         t_first = time.perf_counter()
-        res = run("surface", ["--both-poly"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = stages_cli.main(["extract-shell", *common])
+        torch.cuda.synchronize()
+        res["command_s"] = time.perf_counter() - t_first
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        results["surface"] = res
+        _log_extract("(1M budget)", res)
         meshclean.decimate = decimate
         if "thread" not in side:
             raise AssertionError("the first extract-shell run never entered its QEM")
@@ -1325,22 +1449,16 @@ def phase_extract(scene_dir, out, common, n_views, beside_qem):
             f"{results['peak_gib_before_qem']:.2f} GiB")
         if launches != {"blend_forward": n_views, "blend_backward": 0}:
             raise AssertionError(f"extract-shell should launch B1 once per view: {launches}")
-        if tuple(a + b for a, b in zip(before_qem, side["launches"])) != counts():
+        if tuple(a + b for a, b in zip(before_qem, side["launches"])) != counts_now():
             raise AssertionError("extract-shell launched a kernel after its QEM began")
-        for line in again.stdout:
-            log(f"  [second run] {line.rstrip()}")
-        if again.wait() != 0:
-            raise AssertionError(f"the second extract-shell failed ({again.returncode})")
-        results["again_low_poly"] = {"command_s": time.perf_counter() - t0}
         if "ablations" not in procs:
             raise AssertionError("the ablation runs did not start")
         procs["ablations"].wait()
+    except BaseException:
+        kill_all()
+        raise
     finally:
         meshclean.decimate = decimate
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
     ablations = procs["ablations"]
     before_qem = sum(v for k, v in res["timings_ms"].items()
                      if k not in ("QEM decimation", "projection", "visibility culling")) / 1e3
@@ -1352,37 +1470,71 @@ def phase_extract(scene_dir, out, common, n_views, beside_qem):
     for line in lines:
         log(f"  [ablations] {line}")
     if ablations.returncode != 0:
+        kill_all()
         raise AssertionError(f"the ablation runs failed ({ablations.returncode})")
-    for line in lines:
-        if line.startswith("ABLATION "):
-            res = json.loads(line[len("ABLATION "):])
-            results[res["method"]] = res
-    for path, target in zip((shell_ply, low_ply), SHELL_TARGETS):
-        nv, nf, r = median_radius(path)
-        log(f"{os.path.basename(path)}: {nv} vertices, {nf} faces, median radius {r:.5f} "
-            f"(band {SHELL_RADIUS}, {SHELL_KEEP * target:.0f} to {target} vertices)")
-        if not (SHELL_KEEP * target <= nv <= target and SHELL_RADIUS[0] <= r <= SHELL_RADIUS[1]):
-            raise AssertionError(f"{path}: {nv} vertices, median radius {r}")
-        results["surface"][os.path.basename(path)] = {"verts": nv, "faces": nf, "median_r": r}
-    shutil.copy(shell_ply, os.path.join(out, "shell_surface.ply"))
-    with open(low_ply, "rb") as f, open(os.path.join(out_b, "shell.ply"), "rb") as g:
-        same = f.read() == g.read()
-    log(f"second run (--low-poly): shell.ply {'equals' if same else 'DIFFERS from'} the first "
-        "run's shell_lowpoly.ply byte for byte")
-    if not same:
-        raise AssertionError("two extractions of the same model differ")
-    for method, band, extra in ABLATIONS:
-        res = results[method]
-        log(f"extract-shell --method {method} {' '.join(extra)} (beside the stage-3 runs' QEM): "
-            f"{res['command_s']:.1f} s, peak device memory {res['peak_gib']:.2f} GiB; parts "
-            "(ms): " + ", ".join(f"{k} {v:.1f}" for k, v in res["timings_ms"].items()))
-        nv, nf, r = median_radius(os.path.join(ablation_dirs[method], "shell.ply"))
-        log(f"--method {method}: {nv} vertices, {nf} faces, median radius {r:.5f} "
-            f"(band {band})")
-        if not (0 < nv <= SHELL_TARGETS[0] and band[0] <= r <= band[1]):
-            raise AssertionError(f"--method {method}: {nv} vertices, median radius {r}")
-        results[method]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
-    return launches, results, side["result"]
+    results.update(_extract_results(lines))
+    try:
+        nv, nf, r = median_radius(shell_ply)
+        log(f"shell.ply: {nv} vertices, {nf} faces, median radius {r:.5f} "
+            f"(band {SHELL_RADIUS}, {SHELL_KEEP * SHELL_TARGETS[0]:.0f} to "
+            f"{SHELL_TARGETS[0]} vertices)")
+        if not (SHELL_KEEP * SHELL_TARGETS[0] <= nv <= SHELL_TARGETS[0]
+                and SHELL_RADIUS[0] <= r <= SHELL_RADIUS[1]):
+            raise AssertionError(f"{shell_ply}: {nv} vertices, median radius {r}")
+        results["surface"]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
+        shutil.copy(shell_ply, os.path.join(out, "shell_surface.ply"))
+        for method, band, extra in ABLATIONS:
+            res = results[method]
+            _log_extract(f"--method {method} {' '.join(extra)} (beside the stage-3 runs' QEM)",
+                         res)
+            nv, nf, r = median_radius(os.path.join(ablation_dirs[method], "shell.ply"))
+            log(f"--method {method}: {nv} vertices, {nf} faces, median radius {r:.5f} "
+                f"(band {band})")
+            if not (0 < nv <= SHELL_TARGETS[0] and band[0] <= r <= band[1]):
+                raise AssertionError(f"--method {method}: {nv} vertices, median radius {r}")
+            results[method]["shell.ply"] = {"verts": nv, "faces": nf, "median_r": r}
+    except BaseException:
+        kill_all()
+        raise
+
+    def finish():
+        """Wait for the second run (--both-poly) and hold it: its shell.ply
+        byte for byte the first run's, its shell_lowpoly.ply within the 200k
+        budget and the band, copied into `out`. Returns its results."""
+        try:
+            t0 = time.perf_counter()
+            code = again.wait()
+            reader.join()
+            waited = time.perf_counter() - t0
+            for line in again_lines[shown:]:
+                log(f"  [second run] {line}")
+            if code != 0:
+                raise AssertionError(f"the second extract-shell failed ({code})")
+        finally:
+            kill_all()
+        res_b = _extract_results(again_lines)["--both-poly"]
+        res_b["waited_s"] = waited
+        _log_extract(f"--both-poly (a process of its own; {waited:.1f} s waited for)", res_b)
+        low_ply = os.path.join(out_b, "shell_lowpoly.ply")
+        nv, nf, r = median_radius(low_ply)
+        log(f"shell_lowpoly.ply: {nv} vertices, {nf} faces, median radius {r:.5f} "
+            f"(band {SHELL_RADIUS}, {SHELL_KEEP * SHELL_TARGETS[1]:.0f} to "
+            f"{SHELL_TARGETS[1]} vertices)")
+        if not (SHELL_KEEP * SHELL_TARGETS[1] <= nv <= SHELL_TARGETS[1]
+                and SHELL_RADIUS[0] <= r <= SHELL_RADIUS[1]):
+            raise AssertionError(f"{low_ply}: {nv} vertices, median radius {r}")
+        res_b["shell_lowpoly.ply"] = {"verts": nv, "faces": nf, "median_r": r}
+        with open(shell_ply, "rb") as f, open(os.path.join(out_b, "shell.ply"), "rb") as g:
+            same = f.read() == g.read()
+        log(f"second run (--both-poly): shell.ply {'equals' if same else 'DIFFERS from'} the "
+            "first run's byte for byte")
+        if not same:
+            raise AssertionError("two extractions of the same model differ")
+        shutil.copy(low_ply, os.path.join(out, "shell_lowpoly.ply"))
+        return res_b
+
+    finish.kill = kill_all
+    return launches, results, side["result"], finish
 
 
 def _counted(argv):
@@ -1390,8 +1542,7 @@ def _counted(argv):
     and read just after; returns (result, launches, seconds, peak GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    blend_cuda.blend_forward.launches = 0
-    blend_cuda.blend_backward.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = stages_cli.main(argv)
     torch.cuda.synchronize()
@@ -1414,7 +1565,7 @@ def _mean_psnr(model, cams, gt, rcfg):
     return float(np.mean(vals)), vals
 
 
-def phase_frosting(tmp, sugar_ply, shell_ply):
+def phase_frosting(tmp, scene_dir, sugar_ply, shell_ply):
     """Stages 4-5 through stages_cli in process, at full width: a COLMAP
     scene of the coloured sphere's renders, sugar.ply and the surface
     method's 1M-vertex shell.ply; train-frosting at its defaults (2M
@@ -1423,17 +1574,8 @@ def phase_frosting(tmp, sugar_ply, shell_ply):
     bitwise over two calls and against the plain gather; a refinement step
     part by part, full and culled. Returns (launches of each command,
     results)."""
-    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
     rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
                         max_instances=STAGE_MAX_INSTANCES)
-    scene_dir = os.path.join(tmp, "frosting_scene")
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        sphere = gauss_lib.activate(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device=DEV))
-        synthetic.write_colmap_scene(scene_dir, sphere, cams, rcfg)
-        del sphere
-    log(f"frosting: COLMAP scene of the coloured sphere ({len(cams)} views at {MAIN_W}x{MAIN_H}) "
-        f"written in {time.perf_counter() - t0:.1f} s")
     outs = [os.path.join(tmp, "frosting"), os.path.join(tmp, "frosting_culled")]
     for o in outs:
         os.makedirs(o)
@@ -1557,6 +1699,19 @@ def phase_frosting(tmp, sugar_ply, shell_ply):
     results["step_ms"], results["max_abs_err"] = frosting_step_timings(
         trained, meta, scams[0], gt[0], rcfg,
         dataclasses.replace(rcfg, max_instances=culled_cap), vis[0])
+
+    # stages_cli metrics on the refined frosting.npz: no test split here, so
+    # the train views
+    res_m, launches["stages_cli_metrics"], secs, _peak = _counted(["metrics", *common(outs[0])])
+    with open(os.path.join(outs[0], "metrics.json")) as fh:
+        back = json.load(fh)
+    results["stages_cli_metrics"] = {"command_s": secs, **res_m}
+    log(f"stages_cli metrics: {secs:.1f} s, launches {launches['stages_cli_metrics']}, "
+        f"metrics.json {back}")
+    if not (back == res_m and res_m["n_views"] == len(scams) and np.isfinite(res_m["psnr"])
+            and np.isfinite(res_m["lpips"]) and launches["stages_cli_metrics"] == {"blend_forward": len(scams),
+                                                   "blend_backward": 0}):
+        raise AssertionError("stages_cli metrics: metrics.json or its launches")
     return launches, results
 
 
@@ -1983,8 +2138,7 @@ def phase_blender(tmp):
                                ("simple", ["--adaptation", "simple"], direct)):
         out = os.path.join(tmp, f"frames_{label}")
         torch.cuda.synchronize()
-        blend_cuda.blend_forward.launches = 0
-        blend_cuda.blend_backward.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = blender_cli.main(["--package", pkg, "--checkpoints", npz, "--out", out,
                                 "--max-instances", str(STAGE_MAX_INSTANCES), "--device", DEV,
@@ -2021,6 +2175,463 @@ def phase_blender(tmp):
                           "culled_capacity": res["culled_capacity"],
                           "frame0_equal_share": float((diff == 0).mean())}
     return launches, results
+
+
+def write_sphere_scene(tmp):
+    """The coloured sphere (sphere_raw(MAIN_N)) rendered by B1 from the 8
+    stage views as a COLMAP scene: stages 4-6 and the pipeline paths run on
+    it. Returns its directory."""
+    cams = [viewer._orbit_camera(az, el, ORBIT_R, device=DEV) for az, el in STAGE_ORBITS]
+    rcfg = RasterConfig(width=MAIN_W, height=MAIN_H, chunk=128,
+                        max_instances=STAGE_MAX_INSTANCES)
+    scene_dir = os.path.join(tmp, "frosting_scene")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        sphere = gauss_lib.activate(gauss_lib.params_from_numpy(sphere_raw(MAIN_N), device=DEV))
+        synthetic.write_colmap_scene(scene_dir, sphere, cams, rcfg)
+        del sphere
+    log(f"the coloured sphere's COLMAP scene ({len(cams)} views at {MAIN_W}x{MAIN_H}) written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return scene_dir
+
+
+def write_cli_scene(src, dst, n_points):
+    """The scene src (its images and poses) with its point cloud cut to the
+    sphere's first n_points means, coloured as the sphere."""
+    shutil.copytree(os.path.join(src, "images"), os.path.join(dst, "images"))
+    sparse = os.path.join(dst, "sparse", "0")
+    os.makedirs(sparse)
+    for name in ("cameras.bin", "images.bin"):
+        shutil.copy(os.path.join(src, "sparse", "0", name), sparse)
+    raw = sphere_raw(MAIN_N)
+    synthetic.write_points3d(sparse, raw["means3d"][:n_points], raw["sh_dc"][:n_points, 0])
+    return dst
+
+
+class StageLog:
+    """A run_pipeline log_fn: logs each line and keeps, at each stage line
+    ("=== ... ==="), the kernels' counts' rise since the log was made and
+    the time."""
+
+    def __init__(self):
+        self.start = counts_now()
+        self.marks = []
+
+    def __call__(self, line):
+        log(f"  {line}")
+        if line.startswith("==="):
+            self.marks.append((line.strip("= "), rise(self.start), time.perf_counter()))
+
+    def launches_by_stage(self):
+        """{stage line: (B1, B2) launched until the next stage line, or now}."""
+        ends = [m[1] for m in self.marks[1:]] + [rise(self.start)]
+        return {m[0]: tuple(b - a for a, b in zip(m[1], e)) for m, e in zip(self.marks, ends)}
+
+
+def counts_now():
+    return (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
+
+
+def rise(before):
+    """(B1, B2) launched since the counts were `before`: work that runs
+    beside another phase reads its launches this way and never resets the
+    counts, which the other phase's check reads."""
+    return tuple(a - b for a, b in zip(counts_now(), before))
+
+
+def reset_counts():
+    blend_cuda.blend_forward.launches = 0
+    blend_cuda.blend_backward.launches = 0
+
+
+# ITU T.81 Annex K: the example quantisation tables (K.1, K.2; natural
+# order) and the typical Huffman tables (K.3-K.6: 16 code counts, symbols)
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32),
+)
+JPEG_HUFF = {
+    "dc0": ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    "dc1": ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    "ac0": ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], [
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+        0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1,
+        0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16, 0x17, 0x18,
+        0x19, 0x1A, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+        0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57,
+        0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
+        0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8A, 0x92,
+        0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
+        0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
+        0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8,
+        0xD9, 0xDA, 0xE1, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]),
+    "ac1": ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+        0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09,
+        0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
+        0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38,
+        0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56,
+        0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
+        0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
+        0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA,
+        0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6,
+        0xD7, 0xD8, 0xD9, 0xDA, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]),
+}
+
+
+def _huff_codes(bits, vals):
+    """[256, 2] (code, length) per symbol of a canonical Huffman table."""
+    codes, code, k = np.zeros((256, 2), np.int64), 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes[vals[k]] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    return codes
+
+
+def encode_jpeg(rgb):
+    """A baseline JPEG (JFIF, YCbCr 4:2:0, the Annex K tables) of rgb
+    [H, W, 3] uint8 in numpy: float DCT, rounded quantisation, and one
+    interleaved Huffman-coded scan built as one array of bit fields, sorted
+    into stream order (the card's machine has no JPEG encoder)."""
+    zigzag = image_io._NATURAL  # zig-zag position -> natural position
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.float64)
+    ycc = np.stack([x @ [0.299, 0.587, 0.114], x @ [-0.168736, -0.331264, 0.5] + 128,
+                    x @ [0.5, -0.418688, -0.081312] + 128], -1)
+    ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+    ycc = np.pad(ycc, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    chroma = ycc[..., 1:].reshape(ph // 2, 2, pw // 2, 2, 2).mean(axis=(1, 3))
+    n = np.arange(8)
+    dct = np.sqrt(np.where(n == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
+        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    my, mx = ph // 16, pw // 16
+
+    def blocks(plane, q, per):  # [my, mx, per * per, 64] quantised, zig-zag order
+        b = plane.reshape(my, per, 8, mx, per, 8).transpose(0, 3, 1, 4, 2, 5) - 128.0
+        coef = (dct @ b @ dct.T).reshape(my, mx, per * per, 64)
+        return np.round(coef / q)[..., zigzag].astype(np.int64)
+
+    # the blocks in stream order: per MCU four Y blocks, then Cb and Cr
+    stream = np.concatenate([blocks(ycc[..., 0], JPEG_QUANT[0], 2),
+                             blocks(chroma[..., 0], JPEG_QUANT[1], 1),
+                             blocks(chroma[..., 1], JPEG_QUANT[1], 1)], axis=2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    table = np.minimum(comp, 1)
+    dc = stream[:, 0].copy()
+    for c in range(3):
+        dc[comp == c] = np.diff(stream[comp == c, 0], prepend=0)
+
+    def size(v):  # magnitude category and extra bits
+        s = np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
+        return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+    codes = {k: _huff_codes(*v) for k, v in JPEG_HUFF.items()}
+    dc_codes = np.stack([codes["dc0"], codes["dc1"]])
+    ac_codes = np.stack([codes["ac0"], codes["ac1"]])
+    nblk = len(stream)
+    fields = []  # (stream key, code, code length, extra bits, extra length)
+    s, extra = size(dc)
+    c = dc_codes[table, s]
+    fields.append((np.arange(nblk) * 1024, c[:, 0], c[:, 1], extra, s))
+    blk, k = np.nonzero(stream[:, 1:])
+    k = k + 1
+    prev = np.where(np.r_[True, blk[1:] != blk[:-1]], 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    for j in range(3):  # up to three ZRLs (16 zeros) before a coefficient
+        sel = run >= 16 * (j + 1)
+        c = ac_codes[table[blk[sel]], 0xF0]
+        fields.append((blk[sel] * 1024 + k[sel] * 4 + j, c[:, 0], c[:, 1],
+                       np.zeros(sel.sum(), np.int64), np.zeros(sel.sum(), np.int64)))
+    s, extra = size(stream[blk, k])
+    c = ac_codes[table[blk], (run % 16) << 4 | s]
+    fields.append((blk * 1024 + k * 4 + 3, c[:, 0], c[:, 1], extra, s))
+    last = np.zeros(nblk, np.int64)
+    last[blk] = k
+    eob = np.nonzero(last < 63)[0]
+    c = ac_codes[table[eob], 0x00]
+    fields.append((eob * 1024 + 1023, c[:, 0], c[:, 1], np.zeros(len(eob), np.int64),
+                   np.zeros(len(eob), np.int64)))
+    key, code, clen, ext, elen = (np.concatenate(f) for f in zip(*fields))
+    order = np.argsort(key, kind="stable")
+    value = (code[order] << elen[order]) | (ext[order] & ((1 << elen[order]) - 1))
+    length = clen[order] + elen[order]
+    total = int(length.sum())
+    pos = np.arange(total) - np.repeat(np.cumsum(length) - length, length)
+    bits = (np.repeat(value, length) >> (np.repeat(length, length) - 1 - pos)) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(JPEG_QUANT):
+        out += seg(0xDB, bytes([t]) + bytes(q[zigzag].astype(np.uint8)))
+    out += seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
+               + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for cls, name in ((0, "dc0"), (0, "dc1"), (1, "ac0"), (1, "ac1")):
+        nbits, vals = JPEG_HUFF[name]
+        out += seg(0xC4, bytes([cls << 4 | int(name[-1])]) + bytes(nbits) + bytes(vals))
+    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return out + data + b"\xff\xd9"
+
+
+def _read_back(out_dir, n_gaussians, n_verts, n_faces):
+    """Every file the CLI writes, read back by the port's loaders; returns
+    the metrics.json it holds."""
+    for name in ("gs.ply", "sugar.ply"):
+        if os.path.exists(os.path.join(out_dir, name)):
+            p = gauss_lib.load_ply(os.path.join(out_dir, name), device="cpu")
+            if not (p.capacity > 0 and torch.isfinite(p.means3d).all()):
+                raise AssertionError(f"{name} does not load back")
+    v, f = stages_cli.load_mesh(os.path.join(out_dir, "shell.ply"))
+    if (len(v), len(f)) != (n_verts, n_faces):
+        raise AssertionError(f"shell.ply: {len(v)} vertices, {len(f)} faces")
+    ply = ply_io.read_ply(os.path.join(out_dir, "frosting.ply"))["vertex"]
+    if not (len(ply["x"]) == n_gaussians and all(np.isfinite(ply[k]).all() for k in ply)):
+        raise AssertionError(f"frosting.ply: {len(ply['x'])} Gaussians")
+    (nv, nvt, nf), obj_v = obj_counts(os.path.join(out_dir, "mesh.obj"))
+    if not (nv == n_verts and nf == n_faces and nvt == 3 * n_faces
+            and np.isfinite(obj_v).all()):
+        raise AssertionError(f"mesh.obj: {nv} v, {nvt} vt, {nf} f lines")
+    for name in ("mesh.mtl", "mesh.png"):
+        if not os.path.getsize(os.path.join(out_dir, name)):
+            raise AssertionError(f"{name} is empty")
+    with open(os.path.join(out_dir, "metrics.json")) as fh:
+        return json.load(fh)
+
+
+def _held_out_psnr(model, scene, rcfg):
+    cam = scene.test_cameras[0]
+    gt = torch.from_numpy(cam.image()).to(DEV)
+    with torch.inference_mode():
+        return float(psnr(torch.clamp(render(*model, cam.camera, rcfg).image, 0.0, 1.0), gt))
+
+
+def phase_pipelines(tmp, scene_dir, weights):
+    """The pipeline paths on the coloured sphere's scene: (1) cli.main
+    --tiny --eval --export-obj, all six stages fresh; (2) the config cli
+    builds for --eval --export-obj (1080p, 7 train views, capacity 2^19, 2M
+    Frosting Gaussians; the iterations cut) through run_pipeline with a
+    cache whose shell.npz holds a 1M-vertex UV sphere, then the cli's
+    writer; (3) a second run_pipeline from that cache, bitwise equal; (4)
+    LPIPS (weights: the npz FROSTING_TPU_LPIPS_WEIGHTS names) on the
+    held-out view on the card and, in a process of its own, on the CPU; (5)
+    stages_cli convert without colmap, in a process of its own; (6) a 1080p
+    baseline JPEG decoded and timed. It runs beside the first stage-3 run's
+    host QEM, so it changes no state of this process that the QEM reads
+    (the kernels' counts, the peak memory statistics, the thread count,
+    the environment): each path's launches are the counts' rise over it.
+    Returns (launches per path, results)."""
+    launches, res = {}, {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    # (1) the entry point unchanged, --tiny
+    tiny_scene = write_cli_scene(scene_dir, os.path.join(tmp, "cli_tiny", "sphere"),
+                                 CLI_TINY_POINTS)
+    out_tiny = os.path.join(tmp, "cli_tiny_out")
+    stamp("cli --tiny (six stages fresh)")
+    torch.cuda.synchronize()
+    before = counts_now()
+    t0 = time.perf_counter()
+    out, tiny_metrics = cli.main(["-s", tiny_scene, "-o", out_tiny, "--tiny", "--eval",
+                                  "--export-obj"])
+    torch.cuda.synchronize()
+    launches["cli_tiny"] = dict(zip(("blend_forward", "blend_backward"), rise(before)))
+    args = cli.build_parser().parse_args(["-s", tiny_scene, "--tiny"])
+    tcfg = cli.build_config(args, 1.0)
+    n_test = -(-len(STAGE_ORBITS) // 8)  # --eval holds out every 8th view
+    n_train = len(STAGE_ORBITS) - n_test
+    sugar_iters = tcfg.sugar.iterations - tcfg.sugar.start_iteration + 1
+    steps = tcfg.gs.iterations + sugar_iters + tcfg.refine.iterations
+    want = {"blend_forward": steps + n_train + n_train + n_test, "blend_backward": steps}
+    back = _read_back(os.path.join(out_tiny, "sphere"), tcfg.frosting.n_gaussians,
+                      len(out["shell_verts"]), len(out["shell_faces"]))
+    res["cli_tiny"] = {"command_s": time.perf_counter() - t0, "metrics": tiny_metrics,
+                       "shell_verts": len(out["shell_verts"]),
+                       "sugar_kept": out["sugar_history"][-1]["n_active"]}
+    log(f"cli --tiny: {res['cli_tiny']['command_s']:.1f} s, launches {launches['cli_tiny']} "
+        f"(predicted {want}: 3DGS {tcfg.gs.iterations} + SuGaR {sugar_iters} + refinement "
+        f"{tcfg.refine.iterations} steps, stage 3 and the bake once per train view, metrics once "
+        f"per test view), shell {len(out['shell_verts'])} vertices, metrics {tiny_metrics}")
+    if launches["cli_tiny"] != want:
+        raise AssertionError(f"cli --tiny launched {launches['cli_tiny']}, not {want}")
+    if not (back == tiny_metrics and tiny_metrics["n_views"] == 1
+            and all(np.isfinite(tiny_metrics[k]) for k in ("psnr", "ssim", "lpips"))):
+        raise AssertionError(f"cli --tiny: metrics.json {back}")
+    del out
+
+    # (2) the full-width pipeline through run_pipeline and the cli's writer
+    stamp("the full-width pipeline (stage 3 resumed from shell.npz)")
+    full_scene = write_cli_scene(scene_dir, os.path.join(tmp, "cli_full", "sphere"), CLI_POINTS)
+    args = cli.build_parser().parse_args(
+        ["-s", full_scene, "-o", os.path.join(tmp, "cli_full_out"), "--eval", "--export-obj",
+         "--max-instances", str(STAGE_MAX_INSTANCES)])
+    scene, cams, gt, rcfg, out_dir = cli.load_scene(args)
+    cfg = cli.build_config(args, scene.spatial_extent)
+    cfg = dataclasses.replace(
+        cfg, gs=dataclasses.replace(cfg.gs, iterations=PIPE_GS_ITERS),
+        sugar=dataclasses.replace(cfg.sugar, start_iteration=PIPE_SUGAR[0],
+                                  iterations=PIPE_SUGAR[1]),
+        refine=dataclasses.replace(cfg.refine, iterations=PIPE_REFINE_ITERS,
+                                   lr_max_steps=PIPE_REFINE_ITERS))
+    cache = os.path.join(tmp, "pipeline_cache")
+    os.makedirs(cache)
+    verts, faces = synthetic.uv_sphere(UV_LAT, UV_LON)
+    np.savez(os.path.join(cache, "shell.npz"), verts=verts, faces=faces,
+             poisson_res=np.zeros(0, np.int64))
+    parts = PartTimes(DEV)
+    torch.cuda.synchronize()
+    stages = StageLog()
+    t0 = time.perf_counter()
+    out = pipeline_lib.run_pipeline(cams, gt, scene.points, scene.colors,
+                                    scene.spatial_extent, rcfg, cfg, cache_dir=cache,
+                                    log_fn=stages, device=DEV, parts=parts)
+    torch.cuda.synchronize()
+    by_stage = stages.launches_by_stage()
+    run_s = time.perf_counter() - t0
+    before = counts_now()
+    metrics_full = cli.write_outputs(args, out, scene, cams, rcfg, out_dir, parts)
+    torch.cuda.synchronize()
+    by_stage["exports, bake and metrics"] = rise(before)
+    full = {"run_pipeline_s": run_s, "s_by_part": {k: v / 1e3 for k, v in parts.result().items()},
+            "launches": by_stage, "metrics": metrics_full}
+    res["pipeline_full_width"] = full
+    launches["pipeline_full_width"] = dict(zip(
+        ("blend_forward", "blend_backward"),
+        (sum(v[i] for v in by_stage.values()) for i in range(2))))
+    sugar_iters = PIPE_SUGAR[1] - PIPE_SUGAR[0] + 1
+    want = {"stage 1: vanilla 3DGS": (PIPE_GS_ITERS, PIPE_GS_ITERS),
+            "stage 2: coarse SuGaR": (sugar_iters, sugar_iters),
+            "stage 3: resumed from cache": (0, 0), "stage 4: frosting init": (0, 0),
+            "stage 5: frosting refinement": (PIPE_REFINE_ITERS, PIPE_REFINE_ITERS),
+            "exports, bake and metrics": (len(cams) + len(scene.test_cameras), 0)}
+    fparams, meta = out["frosting_params"], out["frosting_meta"]
+    n = fparams.bary_logits.shape[0]
+    log(f"full-width pipeline: {len(cams)} train views at {rcfg.width}x{rcfg.height}, "
+        f"{len(scene.points)} points, capacity {cfg.gs.capacity}, {n} Frosting Gaussians on "
+        f"{len(verts)} shell vertices: run_pipeline {run_s:.1f} s; seconds by part " + ", ".join(f"{k} {v:.2f}" for k, v in full["s_by_part"].items())
+        + f"; launches by stage {by_stage} (predicted {want}); metrics {metrics_full}")
+    if by_stage != want:
+        raise AssertionError(f"the full-width pipeline launched {by_stage}, not {want}")
+    if n != FROSTING_N:
+        raise AssertionError(f"the full-width pipeline built {n} Frosting Gaussians")
+    hists = out["gs_history"] + out["sugar_history"] + out["refine_history"]
+    if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hists) or any(
+            h["overflow_steps"] for h in out["refine_history"]):
+        raise AssertionError(f"the full-width pipeline: a non-finite loss or an overflow {hists}")
+    init, init_meta = checkpoint.load_frosting(os.path.join(cache, "frosting_init.npz"),
+                                               device=DEV)
+    psnr_init = _held_out_psnr(frosting_lib.to_gaussians(init, init_meta), scene, rcfg)
+    full["psnr_held_out_init"] = psnr_init
+    log(f"held-out PSNR: init {psnr_init:.3f} dB, refined {metrics_full['psnr']:.3f} dB")
+    if not (np.isfinite(metrics_full["psnr"]) and metrics_full["psnr"] > psnr_init):
+        raise AssertionError("the refined model's held-out PSNR is not above the init's")
+    back = _read_back(out_dir, FROSTING_N, len(verts), len(faces))
+    loaded, _ = checkpoint.load_frosting(os.path.join(out_dir, "frosting.npz"), device=DEV)
+    if not (back == metrics_full and _groups_equal(loaded, fparams)):
+        raise AssertionError("metrics.json or frosting.npz does not read back")
+    del init, init_meta, loaded
+
+    # (3) resume parity: a second run from the cache, now holding all three
+    stamp("the full-width pipeline resumed from its cache")
+    stages = StageLog()
+    t0 = time.perf_counter()
+    again = pipeline_lib.run_pipeline(cams, gt, scene.points, scene.colors,
+                                      scene.spatial_extent, rcfg, cfg, cache_dir=cache,
+                                      log_fn=stages, device=DEV)
+    torch.cuda.synchronize()
+    resumed = [m[0] for m in stages.marks]
+    before_refine = stages.marks[-1][1]
+    in_all = rise(stages.start)
+    equal = _groups_equal(again["frosting_params"], fparams)
+    res["pipeline_resumed"] = {"s": time.perf_counter() - t0, "bitwise_equal": equal,
+                               "lines": resumed}
+    launches["pipeline_resumed"] = dict(zip(("blend_forward", "blend_backward"), in_all))
+    log(f"resumed run: {res['pipeline_resumed']['s']:.1f} s, stage lines {resumed}, launches "
+        f"before stage 5 {before_refine}, in all {launches['pipeline_resumed']}; refined params "
+        f"{'bitwise equal to' if equal else 'DIFFER from'} the first run's")
+    if resumed != ["stages 1-2: resumed from cache", "stage 3: resumed from cache",
+                   "stage 4: resumed from cache", "stage 5: frosting refinement"]:
+        raise AssertionError(f"the rerun did not resume stages 1-4: {resumed}")
+    if before_refine != (0, 0) or in_all != (PIPE_REFINE_ITERS, PIPE_REFINE_ITERS):
+        raise AssertionError("the rerun launched a kernel before stage 5, or not once a step")
+    if not equal:
+        raise AssertionError("the resumed refinement differs from the first run's")
+    del again
+
+    # (4) LPIPS on the held-out 1080p view: the card against the CPU
+    stamp("LPIPS at 1080p, the card against the CPU")
+    with torch.inference_mode():
+        cam = scene.test_cameras[0]
+        img = torch.clamp(render(*frosting_lib.to_gaussians(fparams, meta), cam.camera,
+                                 rcfg).image, 0.0, 1.0)
+        gt0 = torch.from_numpy(cam.image()).to(DEV)
+        lp = metrics_lib.LPIPS(weights, device=DEV)
+        on_card = float(lp(img, gt0))
+        lpips_ms = cuda_ms(lambda: lp(img, gt0), 5)
+        pair = [os.path.join(tmp, f"lpips_{k}.npy") for k in ("img", "gt")]
+        for path, t in zip(pair, (img, gt0)):
+            np.save(path, t.cpu().numpy())
+    # the CPU's value in a process of its own, on 4 threads: the stage-3
+    # QEM's threads share the host, and this process's thread count is theirs
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", _LPIPS_CPU_CODE, weights, *pair], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    cpu_s = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f"LPIPS on the CPU failed: {done.stderr[-2000:]}")
+    on_cpu = float(done.stdout.split()[-1])
+    res["lpips"] = {"card": on_card, "cpu": on_cpu, "card_ms": lpips_ms, "cpu_s": cpu_s,
+                    "metrics_json": metrics_full["lpips"]}
+    log(f"LPIPS (seeded VGG16-shaped weights) at {MAIN_W}x{MAIN_H}: card {on_card:.7g} "
+        f"({lpips_ms:.2f} ms, CUDA events, median of 5), CPU {on_cpu:.7g} ({cpu_s:.1f} s, a "
+        f"process of its own on 4 threads, its start included), metrics.json "
+        f"{metrics_full['lpips']:.7g}; rtol {LPIPS_RTOL}")
+    for v in (on_card, metrics_full["lpips"]):
+        if not abs(v - on_cpu) <= LPIPS_RTOL * abs(on_cpu):
+            raise AssertionError(f"LPIPS on the card {v} against the CPU's {on_cpu}")
+    del out, fparams, meta, img, lp
+
+    # (5) convert without colmap: a process of its own, whose PATH is an
+    # empty directory (this process's PATH stays the QEM's)
+    done = subprocess.run(
+        [sys.executable, "-m", "frosting_tpu_torch.stages_cli", "convert", "-s",
+         os.path.join(tmp, "raw")], cwd=root, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PATH": os.path.join(tmp, "no_colmap")})
+    message = done.stderr.strip().splitlines()[-1:]
+    if done.returncode != 1 or message != [CONVERT_MESSAGE]:
+        raise AssertionError(f"convert without colmap: exit {done.returncode}, {done.stderr}")
+    log("stages_cli convert without colmap exits with the JAX package's message")
+
+    # (6) a 1080p baseline JPEG: the held-out view through the Annex K tables
+    src, _mode = image_io.read_image(scene.test_cameras[0].image_path)
+    t0 = time.perf_counter()
+    data = encode_jpeg(src)
+    enc_s = time.perf_counter() - t0
+    jpg = os.path.join(tmp, "view.jpg")
+    with open(jpg, "wb") as fh:
+        fh.write(data)
+    got, mode = image_io.read_image(jpg)
+    decode_ms = host_ms(lambda: image_io.read_image(jpg), 5)
+    mse = float(np.mean((got.astype(np.float64) - src) ** 2))
+    jpeg_psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    res["jpeg"] = {"bytes": len(data), "decode_ms": decode_ms, "encode_s": enc_s,
+                   "psnr": jpeg_psnr}
+    log(f"JPEG: the held-out view as a {len(data)}-byte baseline 4:2:0 JPEG (numpy encoder, "
+        f"{enc_s:.1f} s); decode {decode_ms:.1f} ms (host clock, median of 5), {mode} "
+        f"{got.shape}, PSNR against its source {jpeg_psnr:.2f} dB (required {JPEG_PSNR})")
+    if not (mode == "RGB" and got.shape == src.shape and jpeg_psnr >= JPEG_PSNR):
+        raise AssertionError("the decoded JPEG is not its source")
+    return launches, res
 
 
 def hold_learned_shell(params, meta, cam, gt, rcfg):
@@ -2256,28 +2867,12 @@ def hold_depth_render(params, cam, rcfg):
             "depth_render_b2_against_float64": held}
 
 
-def main():
-    t_start = time.perf_counter()
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    # the plain versions' colour sums are batched matmuls: keep them FP32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = smi()
-    log("device:", card, "|", torch.cuda.get_device_name(0),
-        "| torch", torch.__version__, "cuda", torch.version.cuda)
-
-    # 2. build
-    t0 = time.time()
-    logs = _build.build_all(
-        blend_cuda.KERNELS + perf_vpu_dtype.KERNELS + perf_scan_variants.KERNELS)
-    log(f"build: {time.time() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
-
+def phase_preamble(raw):
+    """Paths 3-7: the kernels against their plain versions, serving,
+    training, timing at 1080p and the bench path, on `raw` (the 1M scene).
+    They run first in the thread beside the first stage-3 run's host QEM
+    (phase_stages), where nothing else uses the card; each path's launches
+    are the counts' rise over it. Returns what the kernels record reads."""
     # 3. kernels vs plain versions
     stamp("kernels against their plain versions")
     max_err = {"blend_forward": 0.0, "blend_backward": 0.0}
@@ -2313,7 +2908,6 @@ def main():
 
     # 4. serving path: gs.ply -> load_ply -> viewer at 1920x1080
     stamp("serving path")
-    raw = raw_params(bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "gs.ply")
         t0 = time.time()
@@ -2331,8 +2925,7 @@ def main():
         del fields, binned
         torch.cuda.empty_cache()
 
-    blend_cuda.blend_forward.launches = 0
-    blend_cuda.blend_backward.launches = 0
+    before = counts_now()
     server = viewer.start(lambda: model, cfg, port=0, host="127.0.0.1", device=DEV)
     try:
         base = "http://127.0.0.1:%d" % server.server_address[1]
@@ -2355,12 +2948,11 @@ def main():
     finally:
         server.shutdown()
         server.server_close()
-    serve_launches = blend_cuda.blend_forward.launches
-    serve_counts = {"blend_forward": serve_launches,
-                    "blend_backward": blend_cuda.blend_backward.launches}
+    serve_counts = dict(zip(("blend_forward", "blend_backward"), rise(before)))
+    serve_launches = serve_counts["blend_forward"]
     log(f"viewer: 3 renders at {MAIN_W}x{MAIN_H} @ 1M, ms per request "
         f"{[round(t, 1) for t in request_ms]}, forward kernel launches "
-        f"{serve_launches}, backward {blend_cuda.blend_backward.launches}")
+        f"{serve_launches}, backward {serve_counts['blend_backward']}")
     if serve_launches < len(ORBITS):
         raise AssertionError("the serving path did not go through the kernel")
 
@@ -2464,10 +3056,47 @@ def main():
     probe_records = probe_timings(probe_err, bench_times, bench_launches)
     bench_profiles()
 
-    # 8. the stages path: a scene on disk through stages_cli
-    stamp("stages path (stage 3 with stages 1-2 beside its QEM, stages 4-6, editing)")
-    stage_launches, extract_launches, frosting_launches, stage_times = phase_stages(raw, model)
+    return types.SimpleNamespace(
+        max_err=max_err, launches=launches, serve_counts=serve_counts,
+        bench_launches=bench_launches, probe_records=probe_records,
+        b_f=b_f, b_b=b_b, s_f=s_f, s_b=s_b, serve=serve, step=step, reduction=reduction,
+        times_f=(ms, ms_fs), times_b=(ms_b, ms_bs),
+        plain_f=(plain_ms, plain_ms_fs), plain_b=(plain_ms_b, plain_ms_bs))
+
+
+def main():
+    t_start = time.perf_counter()
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    # the plain versions' colour sums are batched matmuls: keep them FP32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi()
+    log("device:", card, "|", torch.cuda.get_device_name(0),
+        "| torch", torch.__version__, "cuda", torch.version.cuda)
+
+    # 2. build
+    t0 = time.time()
+    logs = _build.build_all(
+        blend_cuda.KERNELS + perf_vpu_dtype.KERNELS + perf_scan_variants.KERNELS)
+    log(f"build: {time.time() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3-8. the stages path, with paths 3-7 (phase_preamble) run first beside
+    # stage 3's host QEM
+    raw = raw_params(bench_scene(MAIN_N, 0, -0.9, 0.9, 0.003, 0.015))
+    with torch.inference_mode():
+        model = gauss_lib.activate(gauss_lib.params_from_numpy(raw, device=DEV))
+    stamp("stages path (stage 3; paths 3-7 and stages 1-2 beside its QEM; stages 4-6, "
+          "editing)")
+    pre, stage_launches, extract_launches, frosting_launches, stage_times = phase_stages(
+        raw, model, phase_preamble)
     log(json.dumps({"stages": stage_times}))
+    max_err = pre.max_err
     for errs in (stage_times["depth_render_max_abs_err"],
                  *stage_times["frosting"]["max_abs_err"].values(),
                  stage_times["refined_sugar"]["max_abs_err"]):
@@ -2481,11 +3110,11 @@ def main():
             "source": f"frosting_tpu_torch/csrc/{name}.cu",
             "replaces": f"frosting_tpu/raster/blend_pallas.py:{line}",
             # the training path's count; each main path's beside it
-            "launches": launches[name],
+            "launches": pre.launches[name],
             "launches_by_path": {
-                "serving": serve_counts[name],
-                "training": launches[name],
-                "bench": bench_launches[name],
+                "serving": pre.serve_counts[name],
+                "training": pre.launches[name],
+                "bench": pre.bench_launches[name],
                 "stages": stage_launches[name],
                 "extract_shell": extract_launches[name],
                 "frosting": frosting_launches["frosting"][name],
@@ -2494,6 +3123,10 @@ def main():
                 "train_refined_sugar": frosting_launches["refined_sugar"][name],
                 "blender_cli_complex_culled": frosting_launches["blender_complex_culled"][name],
                 "blender_cli_simple": frosting_launches["blender_simple"][name],
+                "stages_cli_metrics": frosting_launches["stages_cli_metrics"][name],
+                "cli_tiny": frosting_launches["cli_tiny"][name],
+                "pipeline_full_width": frosting_launches["pipeline_full_width"][name],
+                "pipeline_resumed": frosting_launches["pipeline_resumed"][name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs
@@ -2507,21 +3140,21 @@ def main():
             "library_ms": None,
             "bound_live_ms": b["live"][0],
             "bound_prestop_ms": b["prestop"][0],
-            "pairs": serve["pairs"],
-            "live_pairs": serve["live"],
+            "pairs": pre.serve["pairs"],
+            "live_pairs": pre.serve["live"],
             "ms_step": times[1],
             "plain_ms_step": plain[1],
             "bound_live_ms_step": sb["live"][0],
             "bound_prestop_ms_step": sb["prestop"][0],
-            "pairs_step": step["pairs"],
-            "live_pairs_step": step["live"],
+            "pairs_step": pre.step["pairs"],
+            "live_pairs_step": pre.step["live"],
         }
 
     records = [
-        record("blend_forward", 207, b_f, s_f, (ms, ms_fs), (plain_ms, plain_ms_fs)),
-        record("blend_backward", 411, b_b, s_b, (ms_b, ms_bs), (plain_ms_b, plain_ms_bs)),
-    ] + probe_records
-    records[1]["reduction"] = reduction
+        record("blend_forward", 207, pre.b_f, pre.s_f, pre.times_f, pre.plain_f),
+        record("blend_backward", 411, pre.b_b, pre.s_b, pre.times_b, pre.plain_b),
+    ] + pre.probe_records
+    records[1]["reduction"] = pre.reduction
     records[1]["depth_render"] = stage_times["depth_render_b2_against_float64"]
     records[1]["refined_sugar_step"] = stage_times["refined_sugar"]["step_ms"].pop(
         "b2_against_float64")

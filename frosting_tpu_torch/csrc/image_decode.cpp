@@ -1,7 +1,8 @@
 // The serial parts of the port's image decoders (utils/image.py), built with
 // g++ into a shared library with a plain C interface and loaded with ctypes:
 // PNG's row filters, whose Average and Paeth predictors depend on the byte
-// just decoded, and the Huffman entropy decoding of a baseline JPEG scan.
+// just decoded, and the Huffman entropy decoding of a sequential (baseline)
+// or progressive JPEG scan.
 // Everything else (chunk and marker parsing, the IDCT, chroma upsampling,
 // colour conversion, resizing) is vectorised numpy in utils/image.py.
 //
@@ -214,6 +215,134 @@ int jpeg_decode_scan(const uint8_t* data, int64_t len, const uint8_t* tables,
     }
   }
   // the scan ends at the next marker: skip to it
+  int64_t pos = br.pos;
+  while (pos + 1 < len && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
+                            data[pos + 1] != 0xFF))
+    ++pos;
+  *consumed = pos;
+  return 0;
+}
+
+// Huffman-decode one scan of a progressive JPEG (ITU T.81 G.1.2, as
+// libjpeg's jdphuff.c does it) into the coefficient blocks, which persist
+// across the scans: a DC first scan (ss = 0, ah = 0) or DC refinement
+// (ss = 0, ah > 0), interleaved or not, or an AC first scan or AC
+// refinement over the band ss..se of one component, with end-of-band runs.
+// al is the scan's point transform. The other arguments, the return codes
+// and the restart handling are jpeg_decode_scan's; -4 for a scan header
+// that breaks the spec's rules.
+int jpeg_decode_progressive_scan(const uint8_t* data, int64_t len, const uint8_t* tables,
+                                 int ncomp, const int32_t* comp, int16_t** coefs,
+                                 int64_t mcus_x, int64_t mcus_y, int64_t restart_interval,
+                                 int ss, int se, int ah, int al, int64_t* consumed) {
+  if (ss > se || se > 63 || (ss == 0 && se != 0) || (ss > 0 && ncomp != 1) || al > 13)
+    return -4;
+  Huff huff[8];
+  for (int i = 0; i < 8; ++i)
+    if (!build_huff(tables + i * 272, tables + i * 272 + 16, &huff[i])) return -1;
+  Bits br{data, len, 0};
+  int pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  int64_t mcus_left = restart_interval;
+  const int p1 = 1 << al;      // a refined bit at this scan's position
+  const int m1 = -(1 << al);   // the same for a negative coefficient
+  for (int64_t my = 0; my < mcus_y; ++my) {
+    for (int64_t mx = 0; mx < mcus_x; ++mx) {
+      if (restart_interval > 0) {
+        if (mcus_left == 0) {
+          if (!br.restart()) return -3;
+          pred[0] = pred[1] = pred[2] = pred[3] = 0;
+          eobrun = 0;
+          mcus_left = restart_interval;
+        }
+        --mcus_left;
+      }
+      for (int c = 0; c < ncomp; ++c) {
+        const int32_t* p = comp + 5 * c;
+        const int h = p[0], v = p[1];
+        const Huff& dc = huff[p[2]];
+        const Huff& ac = huff[4 + p[3]];
+        for (int by = 0; by < v; ++by) {
+          for (int bx = 0; bx < h; ++bx) {
+            int16_t* blk = coefs[c] + ((my * v + by) * p[4] + mx * h + bx) * 64;
+            if (ss == 0) {
+              if (ah == 0) {  // DC first: the difference, shifted by al
+                const int s = br.decode(dc);
+                if (s < 0) return -2;
+                if (s) pred[c] += extend(br.bits(s), s);
+                blk[0] = static_cast<int16_t>(static_cast<unsigned>(pred[c]) << al);
+              } else if (br.bits(1)) {  // DC refinement: one bit
+                blk[0] = static_cast<int16_t>(blk[0] | p1);
+              }
+              continue;
+            }
+            if (ah == 0) {  // AC first
+              if (eobrun > 0) {
+                --eobrun;
+                continue;
+              }
+              for (int k = ss; k <= se; ++k) {
+                const int rs = br.decode(ac);
+                if (rs < 0) return -2;
+                const int r = rs >> 4, sz = rs & 15;
+                if (sz) {
+                  k += r;
+                  const int val = extend(br.bits(sz), sz);
+                  if (k < 64)
+                    blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(val) << al);
+                } else if (r == 15) {
+                  k += 15;
+                } else {
+                  eobrun = (int64_t{1} << r) - 1;
+                  if (r) eobrun += br.bits(r);
+                  break;
+                }
+              }
+              continue;
+            }
+            // AC refinement: correction bits for the coefficients already
+            // nonzero, new coefficients of magnitude 1 << al
+            int k = ss;
+            if (eobrun == 0) {
+              for (; k <= se; ++k) {
+                const int rs = br.decode(ac);
+                if (rs < 0) return -2;
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                  s = br.bits(1) ? p1 : m1;
+                } else if (r != 15) {
+                  eobrun = int64_t{1} << r;
+                  if (r) eobrun += br.bits(r);
+                  break;  // the rest of the band is the end-of-band's
+                }
+                // past the nonzero coefficients (each taking a correction
+                // bit) and r zero ones, to the one that becomes s
+                while (k <= se) {
+                  int16_t* coef = blk + kNatural[k];
+                  if (*coef != 0) {
+                    if (br.bits(1) && (*coef & p1) == 0)
+                      *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+                  } else if (--r < 0) {
+                    break;
+                  }
+                  ++k;
+                }
+                if (s && k < 64) blk[kNatural[k]] = static_cast<int16_t>(s);
+              }
+            }
+            if (eobrun > 0) {
+              for (; k <= se; ++k) {
+                int16_t* coef = blk + kNatural[k];
+                if (*coef != 0 && br.bits(1) && (*coef & p1) == 0)
+                  *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+              }
+              --eobrun;
+            }
+          }
+        }
+      }
+    }
+  }
   int64_t pos = br.pos;
   while (pos + 1 < len && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
                             data[pos + 1] != 0xFF))

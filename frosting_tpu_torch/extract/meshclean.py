@@ -130,33 +130,41 @@ def decimate_vertex_clustering(
     return new_verts, new_faces
 
 
-def nearest_distances(points: np.ndarray, support_points: np.ndarray, device="cpu",
+def nearest_distances(points: np.ndarray, support_points: np.ndarray, device="cuda",
                       enough: int = 0) -> np.ndarray:
     """Euclidean distance of each point to its nearest support point, as
     cKDTree(support_points).query(points, k=1) gives it (float64, summed in
     the same order), by the exact query KNN of ops/knn.py on `device`.
 
     Distances are exact up to a search radius, inf past it: the radius
-    starts at four grid cells of the support cloud and grows fourfold
-    until at least `enough` points lie within it (all of them by default).
-    A point far from the cloud then costs one grid pass: cKDTree's query
-    visits most of the tree for a point inside a closed surface, nearly
-    equidistant from all of it."""
+    starts at four grid cells of the support cloud and doubles until at
+    least `enough` points lie within it (all of them by default), each pass
+    searching only the points still past the radius. A point far from the
+    cloud then costs one grid pass: cKDTree's query visits most of the tree
+    for a point inside a closed surface, nearly equidistant from all of it.
+    The radius grows by two and not more because a pass's cost grows with
+    the square of its radius for points that lie that far from a surface
+    cloud (the grid's cells get that wide): a Poisson mesh's spurious inner
+    sheet, where the cleaning's quantile falls."""
     from frosting_tpu_torch.ops import knn
 
     index = knn.knn_prepare(
         torch.as_tensor(np.asarray(support_points, np.float64), device=device), k=1)
     q = torch.as_tensor(np.asarray(points, np.float64), device=device)
     enough = enough or len(points)
+    d2 = torch.full((len(q),), float("inf"), dtype=index.refs.dtype, device=device)
+    todo = torch.arange(len(q), device=device)
     radius = 4.0 * index.cell0
     while True:
-        _, d2 = knn.knn_query_indexed(index, q, 1, radius=radius)
-        d2 = d2[:, 0]
-        if int(torch.isfinite(d2).sum()) >= enough:
+        _, got = knn.knn_query_indexed(index, q[todo], 1, radius=radius)
+        found = torch.isfinite(got[:, 0])
+        d2[todo[found]] = got[found, 0]
+        todo = todo[~found]
+        if len(q) - len(todo) >= enough:
             # numpy's sqrt rounds correctly; torch's vectorised CPU one may
             # not, and cKDTree's distances are correctly rounded
             return np.sqrt(d2.cpu().numpy())
-        radius *= 4.0
+        radius *= 2.0
 
 
 def remove_unsupported_vertices(
@@ -164,7 +172,7 @@ def remove_unsupported_vertices(
     faces: np.ndarray,
     support_points: np.ndarray,
     quantile: float,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Drop the `quantile` fraction of vertices farthest from the input
     surface cloud (the density-quantile vertex cleaning of

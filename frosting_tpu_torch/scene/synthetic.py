@@ -229,8 +229,16 @@ def write_colmap_scene(
             f.write(name.encode() + b"\x00")
             f.write(struct.pack("<Q", 0))  # no 2D points
 
-    means = gaussians[0].detach().cpu().numpy().astype(np.float64)
-    dc = torch.as_tensor(gaussians[4][:, 0]).detach().cpu()
+    write_points3d(sparse, gaussians[0], gaussians[4][:, 0])
+    return [os.path.join(path, "images", n) for n in names]
+
+
+def write_points3d(sparse: str, means, sh_dc) -> None:
+    """sparse/points3D.bin of a COLMAP model: the points `means` [N, 3],
+    coloured by the SH DC terms `sh_dc` [N, 3] (tensors or arrays), with no
+    tracks."""
+    means = torch.as_tensor(means).detach().cpu().numpy().astype(np.float64)
+    dc = torch.as_tensor(sh_dc).detach().cpu()
     rgb = (torch.clamp(sh_ops.sh_to_rgb(dc), 0.0, 1.0) * 255).numpy().astype(np.uint8)
     rec = np.zeros(len(means), np.dtype([
         ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
@@ -242,4 +250,44 @@ def write_colmap_scene(
     with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
         f.write(struct.pack("<Q", len(means)))
         f.write(rec.tobytes())
-    return [os.path.join(path, "images", n) for n in names]
+
+
+def uv_sphere(n_lat: int, n_lon: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A closed unit UV sphere in numpy: two poles and n_lat - 1 rings of
+    n_lon vertices; (verts [V, 3] float32, faces [F, 3] int32)."""
+    th = np.pi * np.arange(1, n_lat) / n_lat
+    ph = 2 * np.pi * np.arange(n_lon) / n_lon
+    ring = np.stack([np.sin(th)[:, None] * np.cos(ph), np.sin(th)[:, None] * np.sin(ph),
+                     np.cos(th)[:, None] * np.ones_like(ph)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, 1]], ring, [[0, 0, -1]]]).astype(np.float32)
+    idx = 1 + np.arange((n_lat - 1) * n_lon).reshape(n_lat - 1, n_lon)
+    nxt = np.roll(idx, -1, axis=1)
+    faces = [np.stack([np.zeros(n_lon, np.int64), idx[0], nxt[0]], 1),
+             np.stack([np.full(n_lon, len(verts) - 1), nxt[-1], idx[-1]], 1)]
+    a, b, c, d = idx[:-1], nxt[:-1], idx[1:], nxt[1:]
+    faces += [np.stack([a, c, b], -1).reshape(-1, 3), np.stack([b, c, d], -1).reshape(-1, 3)]
+    return verts, np.concatenate(faces).astype(np.int32)
+
+
+# VGG16's convolutions (torchvision's feature index, out, in channels) and
+# the LPIPS heads' widths
+VGG16_CONVS = ((0, 64, 3), (2, 64, 64), (5, 128, 64), (7, 128, 128), (10, 256, 128),
+               (12, 256, 256), (14, 256, 256), (17, 512, 256), (19, 512, 512),
+               (21, 512, 512), (24, 512, 512), (26, 512, 512), (28, 512, 512))
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+
+
+def write_lpips_weights(path, seed: int = 0) -> str:
+    """An npz of VGG16 + LPIPS-head-shaped weights drawn from a seed, in
+    torchvision's names (what FROSTING_TPU_LPIPS_WEIGHTS names); returns
+    its path."""
+    rng = np.random.default_rng(seed)
+    z = {}
+    for i, cout, cin in VGG16_CONVS:
+        z[f"features.{i}.weight"] = rng.normal(
+            0, 1.0 / np.sqrt(cin * 9), (cout, cin, 3, 3)).astype(np.float32)
+        z[f"features.{i}.bias"] = rng.normal(0, 0.1, (cout,)).astype(np.float32)
+    for k, c in enumerate(LPIPS_CHANNELS):
+        z[f"lin{k}.model.1.weight"] = np.abs(rng.normal(0, 0.05, (1, c, 1, 1))).astype(np.float32)
+    np.savez(path, **z)
+    return str(path)

@@ -3,11 +3,12 @@ SuGaR), stage 3 (shell extraction), refined SuGaR, stages 4-5 (the Frosting
 layer), stage 6 (the textured mesh) and rendering of a scene on disk.
 
 Counterpart of the ``train-gs``, ``train-sugar``, ``extract-shell``,
-``train-refined-sugar``, ``train-frosting``, ``extract-texture`` and
-``render`` commands of ``frosting_tpu/stages_cli.py``. Each command reads
-and writes artifacts in -o/--output (gs.ply, sugar.ply, shell.ply,
-shell_lowpoly.ply, refined_sugar.npz / .ply, frosting.npz, frosting.ply,
-mesh.obj / .mtl / .png, renders/), so the stages run and resume
+``train-refined-sugar``, ``train-frosting``, ``extract-texture``,
+``render``, ``metrics``, ``full-eval`` and ``convert`` commands of
+``frosting_tpu/stages_cli.py``. Each command reads and writes artifacts in
+-o/--output (gs.ply, sugar.ply, shell.ply, shell_lowpoly.ply,
+refined_sugar.npz / .ply, frosting.npz, frosting.ply, mesh.obj / .mtl /
+.png, renders/, metrics.json), so the stages run and resume
 independently:
 
   python -m frosting_tpu_torch.stages_cli train-gs       -s SCENE -o OUT [...]
@@ -17,18 +18,24 @@ independently:
   python -m frosting_tpu_torch.stages_cli train-frosting -s SCENE -o OUT [--occlusion-culling] [--learn-shell] [...]
   python -m frosting_tpu_torch.stages_cli extract-texture -s SCENE -o OUT [--texture-size 1024]
   python -m frosting_tpu_torch.stages_cli render         -s SCENE -o OUT
+  python -m frosting_tpu_torch.stages_cli metrics        -s SCENE -o OUT [--eval]
+  python -m frosting_tpu_torch.stages_cli full-eval      -s SCENE -o OUT [...]
+  python -m frosting_tpu_torch.stages_cli convert        -s RAW_DIR
 
 SCENE is a COLMAP scene (sparse/0 or sparse, and images/). The commands run
 on the CUDA card by default; ``--device cpu`` runs them on the CPU, through
-the blend kernels' plain versions. ``render`` renders frosting.npz where
-there is one, gs.ply otherwise.
+the blend kernels' plain versions. ``render`` and ``metrics`` render
+frosting.npz where there is one, gs.ply otherwise; ``metrics`` writes
+metrics.json (LPIPS where FROSTING_TPU_LPIPS_WEIGHTS names weights);
+``convert`` needs the ``colmap`` binary on PATH.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -173,13 +180,10 @@ def cmd_extract_shell(args):
 
 def load_live_gaussians(path, device="cuda"):
     """The live rows of a PLY checkpoint as GaussianParams."""
+    from frosting_tpu_torch.pipeline import compact
     from frosting_tpu_torch.scene import gaussians as gauss_lib
 
-    params = gauss_lib.load_ply(path, device=device)
-    live = params.mask > 0.5
-    return type(params)(**{
-        f.name: getattr(params, f.name)[live] for f in dataclasses.fields(params)
-    })
+    return compact(gauss_lib.load_ply(path, device=device))
 
 
 def cmd_train_frosting(args):
@@ -275,24 +279,29 @@ def cmd_extract_texture(args):
     return {"timings_ms": parts.result(), **stats}
 
 
-def cmd_render(args):
-    """Render frosting.npz (or gs.ply where there is none) from the train
-    and test cameras into renders/{split}_{i:05d}.png."""
+def _load_model(args):
+    """The activated model to render: frosting.npz where there is one, the
+    live rows of gs.ply otherwise."""
     from frosting_tpu_torch.models import frosting as frosting_lib
-    from frosting_tpu_torch.raster import render
     from frosting_tpu_torch.scene.gaussians import activate
     from frosting_tpu_torch.train import checkpoint
-    from frosting_tpu_torch.utils.png import encode_png
 
-    scene, cams, _gt, rcfg = _load_scene(args)
     npz = os.path.join(args.output, "frosting.npz")
     with torch.no_grad():
         if os.path.exists(npz):
-            model = frosting_lib.to_gaussians(
-                *checkpoint.load_frosting(npz, device=args.device))
-        else:
-            model = activate(load_live_gaussians(
-                os.path.join(args.output, "gs.ply"), device=args.device))
+            return frosting_lib.to_gaussians(*checkpoint.load_frosting(npz, device=args.device))
+        return activate(load_live_gaussians(os.path.join(args.output, "gs.ply"),
+                                            device=args.device))
+
+
+def cmd_render(args):
+    """Render frosting.npz (or gs.ply where there is none) from the train
+    and test cameras into renders/{split}_{i:05d}.png."""
+    from frosting_tpu_torch.raster import render
+    from frosting_tpu_torch.utils.png import encode_png
+
+    scene, cams, _gt, rcfg = _load_scene(args)
+    model = _load_model(args)
     bg = torch.full((3,), 1.0 if args.white_bg else 0.0, device=args.device)
     out_dir = os.path.join(args.output, "renders")
     os.makedirs(out_dir, exist_ok=True)
@@ -306,6 +315,80 @@ def cmd_render(args):
                 with open(os.path.join(out_dir, f"{split}_{i:05d}.png"), "wb") as f:
                     f.write(data)
     print("wrote", out_dir)
+
+
+def cmd_metrics(args):
+    """PSNR / SSIM (/ LPIPS) of frosting.npz (or gs.ply) over the test
+    split, or the train views where there is none, into metrics.json.
+    Returns the metrics."""
+    from frosting_tpu_torch import metrics as metrics_lib
+    from frosting_tpu_torch.raster import render
+
+    scene, cams, gt, rcfg = _load_scene(args)
+    model = _load_model(args)
+    bg = torch.full((3,), 1.0 if args.white_bg else 0.0, device=args.device)
+    eval_cams = [c.camera for c in scene.test_cameras] or cams
+    eval_gt = np.stack([c.image() for c in scene.test_cameras]) if scene.test_cameras else gt
+    with torch.inference_mode():
+        res = metrics_lib.evaluate_views(
+            lambda cam: render(*model, cam, rcfg, bg=bg).image, eval_cams, eval_gt,
+            lpips=metrics_lib.get_lpips(args.device))
+    metrics_lib.write_metrics(os.path.join(args.output, "metrics.json"), res)
+    print(json.dumps(res))
+    return res
+
+
+def cmd_full_eval(args):
+    """train-gs -> train-sugar -> extract-shell -> train-frosting ->
+    metrics, sequentially (full_eval.py analogue): the JAX package's chain,
+    each command given this one's --device."""
+    common = ["-s", args.scene, "-o", args.output,
+              "--resolution-scale", str(args.resolution_scale)]
+    if args.eval:
+        common.append("--eval")
+    if args.white_bg:
+        common.append("--white-bg")
+    common += ["--device", args.device]
+    main(["train-gs", *common, "--iterations", str(args.iterations),
+          "--capacity", str(args.capacity)])
+    main(["train-sugar", *common, "-r", args.regularization,
+          "--start-iteration", str(args.iterations),
+          "--capacity", str(args.capacity)])
+    main(["extract-shell", *common]
+         + (["--low-poly"] if args.low_poly else [])
+         + (["--fg-split"] if args.fg_split else []))
+    main(["train-frosting", *common, "--gaussians", str(args.gaussians)]
+         + (["--use-background"] if args.use_background else [])
+         + (["--occlusion-culling"] if args.occlusion_culling else []))
+    main(["metrics", *common])
+
+
+def cmd_convert(args):
+    """COLMAP driver (gaussian_splatting/convert.py analogue): runs the
+    colmap binary on a raw image folder if available."""
+    import shutil
+    import subprocess
+
+    if shutil.which("colmap") is None:
+        sys.exit(
+            "convert requires the `colmap` binary on PATH "
+            "(feature extraction + mapper), which this environment "
+            "does not ship. Provide a scene with sparse/0 instead."
+        )
+    src = args.scene
+    db = os.path.join(src, "distorted", "database.db")
+    os.makedirs(os.path.dirname(db), exist_ok=True)
+    for cmdline in (
+        ["colmap", "feature_extractor", "--database_path", db,
+         "--image_path", os.path.join(src, "input"),
+         "--ImageReader.camera_model", "OPENCV"],
+        ["colmap", "exhaustive_matcher", "--database_path", db],
+        ["colmap", "mapper", "--database_path", db,
+         "--image_path", os.path.join(src, "input"),
+         "--output_path", os.path.join(src, "distorted", "sparse")],
+    ):
+        subprocess.run(cmdline, check=True)
+    print("COLMAP reconstruction complete")
 
 
 def build_parser():
@@ -368,6 +451,29 @@ def build_parser():
     sp = sub.add_parser("render")
     _common(sp)
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("metrics")
+    _common(sp)
+    sp.set_defaults(fn=cmd_metrics)
+
+    sp = sub.add_parser("full-eval")
+    _common(sp)
+    sp.add_argument("--iterations", type=int, default=7_000)
+    sp.add_argument("--capacity", type=int, default=1 << 19)
+    sp.add_argument(
+        "-r", "--regularization", default="density",
+        choices=["density", "sdf", "dn_consistency"],
+    )
+    sp.add_argument("--low-poly", action="store_true")
+    sp.add_argument("--fg-split", action="store_true")
+    sp.add_argument("--gaussians", type=int, default=2_000_000)
+    sp.add_argument("--use-background", action="store_true")
+    sp.add_argument("--occlusion-culling", action="store_true")
+    sp.set_defaults(fn=cmd_full_eval)
+
+    sp = sub.add_parser("convert")
+    sp.add_argument("-s", "--scene", required=True)
+    sp.set_defaults(fn=cmd_convert)
     return p
 
 
@@ -376,7 +482,8 @@ def main(argv=None):
     train-sugar: their log-step metrics; extract-shell: its timings and
     counts; train-frosting: its metrics, timings, initialised and refined
     models; train-refined-sugar: its metrics, timings and trained model;
-    extract-texture: its timings and texel statistics)."""
+    extract-texture: its timings and texel statistics; metrics: the
+    metrics)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

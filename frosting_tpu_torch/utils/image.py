@@ -6,25 +6,30 @@ dataset.py``). The port must run where PIL is not installed, so it decodes
 the files itself and aims at the same arrays, bit for bit (against Pillow 12.1.0 on
 libjpeg-turbo; ``tests/test_torch_image.py``):
 
-* PNG: colour types 0, 2, 3 and 6 at 8 bit, and 16-bit grey and RGB(A).
-  Each comes back in PIL's mode, quirks included: a palette image as its
+* PNG: colour types 0, 2, 3 and 6 at 8 bit, 16-bit grey and RGB(A), grey
+  and palette images at 1, 2 and 4 bits, interlaced (Adam7) or not. Each
+  comes back in PIL's mode, quirks included: a palette image as its
   indices ("P"), 16-bit grey as uint16 ("I;16"), 16-bit RGB(A) as the high
-  byte of each sample. Grey + alpha ("LA"), which no trainer can use,
-  raises ValueError; interlaced files and bit depths below 8 raise
-  NotImplementedError.
-* JPEG: Huffman-coded sequential scans, 8-bit, grey or YCbCr (or RGB, as
-  libjpeg decides), sampling 4:4:4, 4:2:2 or 4:2:0, restart markers. The
-  arithmetic is libjpeg's default path, which is specified in integers:
-  the ``JDCT_ISLOW`` IDCT (``jidctint.c``), "fancy" triangular chroma
-  upsampling (``jdsample.c``) and fixed-point YCbCr->RGB tables
+  byte of each sample, 1-bit grey as bool ("1"), 2- and 4-bit grey scaled
+  to 8 bits ("L"). Grey + alpha ("LA"), which no trainer can use, raises
+  ValueError.
+* JPEG: Huffman-coded sequential and progressive scans (spectral selection,
+  successive approximation, end-of-band runs), 8-bit, grey or YCbCr (or
+  RGB, as libjpeg decides), sampling 4:4:4, 4:2:2 or 4:2:0, restart
+  markers. The arithmetic is libjpeg's default path, which is specified in
+  integers: the ``JDCT_ISLOW`` IDCT (``jidctint.c``), "fancy" triangular
+  chroma upsampling (``jdsample.c``) and fixed-point YCbCr->RGB tables
   (``jdcolor.c``). EXIF orientation is not applied, as ``np.asarray(
-  Image.open(p))`` does not apply it. Progressive, arithmetic-coded,
-  lossless, 12-bit and CMYK files raise NotImplementedError.
+  Image.open(p))`` does not apply it. Arithmetic-coded, lossless,
+  hierarchical, 12-bit and CMYK files, and progressive files whose scans
+  leave low coefficients unrefined (libjpeg smooths their blocks), raise
+  NotImplementedError.
 * resize: Pillow's BICUBIC (its default filter) in fixed point with 22
   precision bits, horizontal pass then vertical, each clipped to uint8;
-  RGBA resampled premultiplied; palette images by NEAREST, as PIL does.
+  RGBA resampled premultiplied; palette and 1-bit images by NEAREST, as
+  PIL does.
 
-The two serial parts, PNG's row filters and JPEG's Huffman decoding, are C++
+The serial parts, PNG's row filters and JPEG's Huffman decoding, are C++
 (``csrc/image_decode.cpp``, built with g++ at first use by ``_build.py``).
 """
 
@@ -45,10 +50,16 @@ _I64 = ctypes.c_int64
 
 # (colour type, bit depth) -> (channels, PIL mode)
 _PNG_MODES = {
+    (0, 1): (1, "1"),
+    (0, 2): (1, "L"),
+    (0, 4): (1, "L"),
     (0, 8): (1, "L"),
     (0, 16): (1, "I;16"),
     (2, 8): (3, "RGB"),
     (2, 16): (3, "RGB"),
+    (3, 1): (1, "P"),
+    (3, 2): (1, "P"),
+    (3, 4): (1, "P"),
     (3, 8): (1, "P"),
     (4, 8): (2, "LA"),
     (4, 16): (2, "LA"),
@@ -66,6 +77,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(_I64),
     ]
     lib.jpeg_decode_scan.restype = ctypes.c_int
+    lib.jpeg_decode_progressive_scan.argtypes = lib.jpeg_decode_scan.argtypes[:-1] + [
+        ctypes.c_int] * 4 + [ctypes.POINTER(_I64)]
+    lib.jpeg_decode_progressive_scan.restype = ctypes.c_int
     return lib
 
 
@@ -80,6 +94,25 @@ def _png_chunks(data: bytes):
         if kind == b"IEND":
             return
         pos += 12 + n
+
+
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, width, channels]: uint8
+    for depths up to 8 (unscaled), big-endian pairs as uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows[:, :2 * width * channels].view(">u2").reshape(h, width, channels)
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :width * channels * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(h, width * channels, depth) * weights).sum(
+        axis=2, dtype=np.uint8).reshape(h, width, channels)
 
 
 def decode_png(data: bytes) -> Tuple[np.ndarray, str]:
@@ -99,19 +132,38 @@ def decode_png(data: bytes) -> Tuple[np.ndarray, str]:
     channels, mode = _PNG_MODES[ctype, depth]
     if mode == "LA":
         raise ValueError("grey + alpha (LA) PNG: no trainer takes two channels")
-    if interlace:
-        raise NotImplementedError("interlaced (Adam7) PNG")
-    bpp = channels * depth // 8
-    stride = w * bpp
+    if interlace > 1:
+        raise ValueError(f"unknown PNG interlace method {interlace}")
+    bpp = max(1, channels * depth // 8)  # the filters' byte step
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (stride + 1):
-        raise ValueError("truncated PNG image data")
-    out = np.empty((h, stride), np.uint8)
-    if _lib().png_unfilter(raw.ctypes.data, h, stride, bpp, out.ctypes.data):
-        raise ValueError("PNG row with an unknown filter type")
+    lib = _lib()
+    # an interlaced image gathers its passes; a plain one is its only pass
+    px = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8) if interlace else None
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:  # an empty pass has no bytes
+            continue
+        stride = -(-pw * channels * depth // 8)
+        if raw.size < pos + ph * (stride + 1):
+            raise ValueError("truncated PNG image data")
+        rows = np.empty((ph, stride), np.uint8)
+        if lib.png_unfilter(raw.ctypes.data + pos, ph, stride, bpp, rows.ctypes.data):
+            raise ValueError("PNG row with an unknown filter type")
+        pos += ph * (stride + 1)
+        samples = _png_samples(rows, pw, channels, depth)
+        if interlace:
+            px[y0::dy, x0::dx] = samples
+        else:
+            px = samples
     if mode == "I;16":
-        return out.view(">u2").astype("<u2").reshape(h, w), mode
-    px = out.reshape(h, w, channels, depth // 8)[..., 0]  # 16 bit: high byte
+        return px[..., 0].astype(np.uint16), mode
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)  # PIL keeps the high byte
+    elif mode == "1":
+        px = px != 0
+    elif mode == "L" and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))  # PIL's L;2 and L;4
     return (px[..., 0] if channels == 1 else px), mode
 
 
@@ -125,7 +177,7 @@ _NATURAL = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ])
 _SOF_UNSUPPORTED = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
+    0xC3: "lossless", 0xC5: "hierarchical",
     0xC6: "hierarchical progressive", 0xC7: "hierarchical lossless",
     0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
@@ -270,9 +322,12 @@ def _sof(seg: bytes):
     return precision, height, width, comps
 
 
-def _decode_scan(lib, data, pos, seg, frame, coefs, huff, restart):
+def _decode_scan(lib, data, pos, seg, frame, coefs, huff, restart, coef_bits=None):
     """Huffman-decode the scan whose SOS header is seg and whose data start
-    at pos; fills coefs. Returns the offset where its data end."""
+    at pos; fills coefs. A progressive frame's scans (coef_bits, per
+    component the point transform each coefficient is known to, -1 before
+    its first scan) update the blocks in place. Returns the offset where
+    the scan's data end."""
     _p, height, width, comps = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
@@ -300,23 +355,31 @@ def _decode_scan(lib, data, pos, seg, frame, coefs, huff, restart):
     ptrs = (ctypes.c_void_p * ns)(*[a.ctypes.data for a in arrays])
     buf = np.frombuffer(data, np.uint8)[pos:]
     consumed = _I64(0)
-    err = lib.jpeg_decode_scan(
-        buf.ctypes.data, buf.size, huff.ctypes.data, ns, comp.ctypes.data,
-        ptrs, mcus_x, mcus_y, restart, ctypes.byref(consumed))
+    args = (buf.ctypes.data, buf.size, huff.ctypes.data, ns, comp.ctypes.data, ptrs, mcus_x,
+            mcus_y, restart)
+    if coef_bits is None:
+        err = lib.jpeg_decode_scan(*args, ctypes.byref(consumed))
+    else:
+        ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[
+            3 + 2 * ns] & 15
+        err = lib.jpeg_decode_progressive_scan(*args, ss, se, ah, al, ctypes.byref(consumed))
+        for j in range(ns):
+            coef_bits[index[seg[1 + 2 * j]]][ss:se + 1] = al
     if err:
         raise ValueError(f"corrupt JPEG scan (decoder error {err})")
     return pos + consumed.value
 
 
 def decode_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
-    """Baseline JPEG bytes -> (array, mode) as ``np.asarray(Image.open(...))``
-    and ``Image.mode`` give them with libjpeg's default decoding."""
+    """Baseline or progressive JPEG bytes -> (array, mode) as
+    ``np.asarray(Image.open(...))`` and ``Image.mode`` give them with
+    libjpeg's default decoding."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     lib = _lib()
     qtables = {}
     huff = np.zeros((8, 272), np.uint8)
-    restart, frame, coefs = 0, None, None
+    restart, frame, coefs, coef_bits = 0, None, None, None
     jfif, adobe_transform = False, None
     pos = 2
     while True:
@@ -360,7 +423,7 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
                 i += 17 + n_vals
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", seg[:2])
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             frame = _sof(seg)
             precision, height, width, comps = frame
             if precision != 8:
@@ -371,16 +434,22 @@ def decode_jpeg(data: bytes) -> Tuple[np.ndarray, str]:
             vmax = max(c[2] for c in comps)
             mx, my = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             coefs = [np.zeros((my * c[2], mx * c[1], 64), np.int16) for c in comps]
+            if marker == 0xC2:
+                coef_bits = np.full((len(comps), 64), -1)
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
-            pos = _decode_scan(lib, data, pos, seg, frame, coefs, huff, restart)
+            pos = _decode_scan(lib, data, pos, seg, frame, coefs, huff, restart, coef_bits)
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             adobe_transform = seg[11]
     if frame is None:
         raise ValueError("JPEG without a frame header")
+    # jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
+    # image whose first nine AC coefficients are not all refined to the end
+    if coef_bits is not None and (coef_bits[:, 0] >= 0).all() and (coef_bits[:, 1:10] != 0).any():
+        raise NotImplementedError("progressive JPEG with unrefined coefficients (block smoothing)")
     _p, height, width, comps = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
@@ -516,9 +585,9 @@ def _nearest_resize(img: np.ndarray, width: int, height: int) -> np.ndarray:
 
 def resize(img: np.ndarray, mode: str, size: Tuple[int, int]) -> np.ndarray:
     """``Image.resize(size)`` with Pillow's default filter: BICUBIC for
-    "L", "RGB" and "RGBA" (premultiplied), NEAREST for "P"."""
+    "L", "RGB" and "RGBA" (premultiplied), NEAREST for "P" and "1"."""
     width, height = size
-    if mode == "P":
+    if mode in ("P", "1"):
         return _nearest_resize(img, width, height)
     if mode in ("L", "RGB"):
         return _bicubic_resize(img, width, height)

@@ -99,7 +99,8 @@ def test_meshclean_functions_equal_jax():
     want = jax_meshclean.remove_statistical_outliers(pts, k=8, extra=[extra])
     for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(meshclean.remove_unsupported_vertices(verts, faces, support, 0.1),
+    for a, b in zip(meshclean.remove_unsupported_vertices(verts, faces, support, 0.1,
+                                                          device="cpu"),
                     jax_meshclean.remove_unsupported_vertices(verts, faces, support, 0.1)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(meshclean.project_on_points(verts, support, 0.7),
@@ -136,8 +137,8 @@ def test_nearest_distances_equal_ckdtree_inside_a_closed_surface():
     pts = np.concatenate([e * rng.uniform(0.97, 1.03, (3000, 1)),
                           rng.normal(0, 0.05, (200, 3)), e[:100] * 3.0])
     want = cKDTree(support).query(pts, k=1)[0]
-    np.testing.assert_array_equal(meshclean.nearest_distances(pts, support), want)
-    some = meshclean.nearest_distances(pts, support, enough=3000)
+    np.testing.assert_array_equal(meshclean.nearest_distances(pts, support, device="cpu"), want)
+    some = meshclean.nearest_distances(pts, support, device="cpu", enough=3000)
     near = np.isfinite(some)
     assert near.sum() >= 3000 and not near[3000:3200].any()
     np.testing.assert_array_equal(some[near], want[near])
@@ -186,6 +187,37 @@ def test_qem_decimation_is_bitwise_the_jax_packages():
     assert same[0] is v and same[1] is f
 
 
+def _flat_grid(n=40):
+    ys, xs = np.mgrid[0:n, 0:n]
+    verts = np.stack([xs.ravel() / n, ys.ravel() / n, np.zeros(n * n)], 1)
+    idx = (ys * n + xs)[:-1, :-1].ravel()
+    faces = np.concatenate([np.stack([idx, idx + 1, idx + n + 1], 1),
+                            np.stack([idx, idx + n + 1, idx + n], 1)])
+    return verts, faces.astype(np.int64)
+
+
+def _terraced_sphere():
+    v, f = icosphere(4)
+    v = np.asarray(v, np.float64).copy()
+    v[:, 2] = np.round(v[:, 2] * 10) / 10
+    return v, np.asarray(f, np.int64)
+
+
+@pytest.mark.parametrize("mesh", [_flat_grid, _terraced_sphere], ids=["flat-grid", "terraces"])
+@pytest.mark.parametrize("fraction", [3, 40])
+def test_qem_is_bitwise_the_jax_packages_where_costs_tie(mesh, fraction):
+    """Meshes whose collapse costs tie (a plane: every cost is zero; a
+    sphere cut into coplanar terraces): the heap order of equal costs
+    decides which edge goes first, and the port's heap must take them in
+    std::priority_queue's order, as frosting_tpu.native does."""
+    v, f = mesh()
+    want = jax_native.qem_decimate(v, f, len(v) // fraction)
+    assert want is not None
+    got = meshclean.decimate(v, f, len(v) // fraction)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_qem_fails_loudly(tmp_path, monkeypatch):
     """No fallback to vertex clustering: a source that does not compile,
     or no compiler at all, raises; so does a decimation the library
@@ -214,9 +246,17 @@ def test_auto_poisson_resolution_equals_jax():
 
 
 def _brute(queries, refs, k):
+    """The first k of a stable argsort of each query's float32 squared
+    distances: every distance up to the k-th smallest (argpartition finds
+    it), ordered by distance, then index."""
     d = refs[None] - queries[:, None]
     d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    part = np.argpartition(d2, k - 1, axis=1)[:, :k]
+    kth = np.take_along_axis(d2, part, 1).max(axis=1, keepdims=True)
+    rows, cols = np.nonzero(d2 <= kth)
+    order = np.lexsort((cols, d2[rows, cols], rows))
+    rows, cols = rows[order], cols[order]
+    idx = cols[np.searchsorted(rows, np.arange(len(queries)))[:, None] + np.arange(k)]
     return idx, np.take_along_axis(d2, idx, 1)
 
 

@@ -190,10 +190,11 @@ def level_inputs():
     rng = np.random.default_rng(6)
     ranges = rng.uniform(0.05, 0.15, len(v)).astype(np.float32)
     cfg = dict(knn_k=K)
-    want = jax_frosting.level_dists_along_normals(
+    # jitted: one compile, not one per op of the eager call
+    jcfg = jax_frosting.FrostingConfig(**cfg)
+    want = jax.jit(lambda *a: jax_frosting.level_dists_along_normals(*a[:-1], jcfg, a[-1]))(
         jnp.asarray(v), jnp.asarray(normals), jnp.asarray(means), jnp.asarray(scales),
-        jnp.asarray(quats), jnp.asarray(opac), jax_frosting.FrostingConfig(**cfg),
-        jnp.asarray(ranges))
+        jnp.asarray(quats), jnp.asarray(opac), jnp.asarray(ranges))
     return v, f, normals, (means, scales, quats, opac), ranges, cfg, [np.asarray(w) for w in want]
 
 

@@ -1,11 +1,14 @@
 """The port's PIL-free image I/O (frosting_tpu_torch.utils.image) against
-PIL itself (Pillow 12.1.0 on libjpeg-turbo): PNG and baseline-JPEG
-decoding and the default resize, bit for bit, on images made in the test;
-and the cases it refuses.
+PIL itself (Pillow 12.1.0 on libjpeg-turbo): PNG (interlaced or not, 1 to
+16 bits) and baseline and progressive JPEG decoding and the default
+resize, bit for bit, on images made in the test; and the cases it
+refuses.
 
 The JPEG files are PIL's own (libjpeg-turbo's encoder); the PNGs are
-written here with every row filter (None, Sub, Up, Average, Paeth) and
-every supported colour type, as PIL's encoder picks its filters itself."""
+written here with every row filter (None, Sub, Up, Average, Paeth), every
+supported colour type and bit depth, and Adam7 interlacing, as PIL's
+encoder picks its filters itself and writes neither Adam7 nor 2- or 4-bit
+grey."""
 
 import io
 import struct
@@ -51,18 +54,40 @@ def _chunk(kind, data):
             + struct.pack(">I", zlib.crc32(kind + data)))
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _pack_rows(samples, depth):
+    """[h, w, c] samples -> [h, stride] bytes as PNG packs them (MSB first
+    below 8 bits, big endian at 16)."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    flat = samples.reshape(h, -1).astype(np.uint8)
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
 def _png(samples, ctype, depth, palette=None, interlace=0):
-    """PNG bytes of samples [H, W, C] (uint8, or uint16 for 16 bit), rows
-    filtered with types 0-4 in turn."""
+    """PNG bytes of samples [H, W, C] (uint8, or uint16 for 16 bit; values
+    below 2^depth), rows filtered with types 0-4 in turn; with interlace=1,
+    the seven Adam7 passes, each filtered on its own."""
     h, w, c = samples.shape
-    raw = samples.astype(">u2").view(np.uint8) if depth == 16 else samples
-    rows = raw.reshape(h, -1)
-    bpp = c * depth // 8
-    out, prev = [], np.zeros(rows.shape[1], np.uint8)
-    for y in range(h):
-        kind = y % 5
-        out.append(bytes([kind]) + _filter_row(kind, rows[y], prev, bpp).tobytes())
-        prev = rows[y]
+    bpp = max(1, c * depth // 8)
+    out = []
+    for x0, y0, dx, dy in ADAM7 if interlace == 1 else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:  # an empty pass has no bytes
+            continue
+        rows = _pack_rows(sub, depth)
+        prev = np.zeros(rows.shape[1], np.uint8)
+        for y in range(rows.shape[0]):
+            kind = y % 5
+            out.append(bytes([kind]) + _filter_row(kind, rows[y], prev, bpp).tobytes())
+            prev = rows[y]
     body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
         body += _chunk(b"PLTE", palette.tobytes())
@@ -148,6 +173,16 @@ def _jpeg(mode="RGB", **kw):
     return buf.getvalue()
 
 
+def _unrefined_progressive():
+    """A progressive JPEG of PIL's (libjpeg's simple progression, ten
+    scans) cut after its sixth scan: the low AC coefficients' last bit is
+    never sent, and libjpeg smooths such blocks."""
+    data = _jpeg(progressive=True)
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    assert len(sos) == 10
+    return data[:sos[6]] + b"\xff\xd9"
+
+
 def _patched_sof(data, marker=None, precision=None):
     i = data.index(b"\xff\xc0")
     out = bytearray(data)
@@ -161,20 +196,94 @@ def _patched_sof(data, marker=None, precision=None):
 @pytest.mark.parametrize(
     "make,error",
     [
-        (lambda: _jpeg(progressive=True), NotImplementedError),
+        (lambda: _unrefined_progressive(), NotImplementedError),
         (lambda: _patched_sof(_jpeg(), marker=0xC9), NotImplementedError),  # arithmetic
         (lambda: _patched_sof(_jpeg(), precision=12), NotImplementedError),
         (lambda: _jpeg(mode="CMYK"), NotImplementedError),
         (lambda: _png(np.zeros((4, 4, 2), np.uint8), 4, 8), ValueError),  # LA
-        (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=1), NotImplementedError),
-        (lambda: _png(np.zeros((4, 1, 1), np.uint8), 0, 1), NotImplementedError),
+        (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=2), ValueError),
+        (lambda: _png(np.zeros((4, 1, 3), np.uint8), 2, 1), NotImplementedError),
         (lambda: b"GIF89a", ValueError),
     ],
     ids=["progressive", "arithmetic", "12-bit", "cmyk", "LA", "adam7", "1-bit", "gif"],
 )
 def test_refused_files_raise(make, error):
+    """progressive: a progressive file whose last scans (the final
+    refinement of the low AC coefficients) are cut, which libjpeg would
+    smooth; adam7: an interlace method that is not Adam7; 1-bit: 1-bit
+    RGB, which PNG does not define."""
     with pytest.raises(error):
         image_io.decode(make())
+
+
+# progressive JPEG: (PIL mode, subsampling, extra save options)
+PROGRESSIVE_CASES = {
+    "grey": ("L", -1, {}),
+    "444": ("RGB", 0, {}),
+    "420": ("RGB", 2, {}),
+    "422-optimized": ("RGB", 1, {"optimize": True}),
+    "420-restarts": ("RGB", 2, {"restart_marker_blocks": 3}),
+    "444-optimized-restarts-q95": ("RGB", 0, {"optimize": True, "restart_marker_rows": 1,
+                                              "quality": 95}),
+}
+
+
+@pytest.mark.parametrize("case", list(PROGRESSIVE_CASES))
+def test_progressive_jpeg_matches_pil_bitwise(case):
+    """Spectral selection, successive approximation (DC and AC refinement),
+    end-of-band runs and restart markers, over odd sizes: PIL's
+    progressive files, decoded bit for bit as PIL decodes them."""
+    mode, subsampling, extra = PROGRESSIVE_CASES[case]
+    img = Image.fromarray(_smooth(np.random.default_rng(3), 45, 67, 3)).convert(mode)
+    buf = io.BytesIO()
+    kw = {"subsampling": subsampling} if subsampling >= 0 else {}
+    img.save(buf, "JPEG", progressive=True, quality=extra.pop("quality", 85), **kw, **extra)
+    data = buf.getvalue()
+    assert data.count(b"\xff\xda") > 1 and b"\xff\xc2" in data
+    assert (b"\xff\xd0" in data) == ("restart_marker_blocks" in extra
+                                      or "restart_marker_rows" in extra)
+    _assert_like_pil(data)
+
+
+# (colour type, bit depth, channels) of the Adam7 and sub-8-bit cases
+INTERLACED_CASES = {
+    "L1": (0, 1, 1), "L2": (0, 2, 1), "L4": (0, 4, 1), "L8": (0, 8, 1), "I16": (0, 16, 1),
+    "P1": (3, 1, 1), "P2": (3, 2, 1), "P4": (3, 4, 1), "P8": (3, 8, 1),
+    "RGB8": (2, 8, 3), "RGB16": (2, 16, 3), "RGBA8": (6, 8, 4), "RGBA16": (6, 16, 4),
+}
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("case", list(INTERLACED_CASES))
+def test_png_bit_depths_and_adam7_match_pil(case, interlace):
+    """1-bit grey comes back as bool ("1"), 2- and 4-bit grey scaled to 8
+    bits ("L"), palette images at any depth as their indices ("P"), as in
+    PIL; sizes below one Adam7 block leave passes empty."""
+    ctype, depth, c = INTERLACED_CASES[case]
+    rng = np.random.default_rng(depth + 17 * ctype)
+    for h, w in ((23, 37), (3, 5), (1, 1)):
+        samples = rng.integers(0, 1 << depth, (h, w, c)).astype(
+            np.uint16 if depth == 16 else np.uint8)
+        palette = rng.integers(0, 256, (1 << depth, 3)).astype(np.uint8) if ctype == 3 else None
+        got = _assert_like_pil(_png(samples, ctype, depth, palette, interlace))
+        assert got.shape[:2] == (h, w)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_png_from_pil_below_8_bits_matches_pil(bits):
+    """PIL's own writer: 1-bit grey (mode "1") and palette images saved
+    with bits=1, 2 or 4."""
+    rng = np.random.default_rng(bits)
+    img = Image.fromarray(rng.integers(0, 1 << bits, (29, 43)).astype(np.uint8), "L").convert("P")
+    img.putpalette(rng.integers(0, 256, 3 << bits).tolist())
+    buf = io.BytesIO()
+    img.save(buf, "PNG", bits=bits)
+    assert buf.getvalue()[24] == bits  # the IHDR's bit depth
+    _assert_like_pil(buf.getvalue())
+    if bits == 1:
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 2, (29, 43)).astype(bool)).save(buf, "PNG")
+        assert _assert_like_pil(buf.getvalue()).dtype == bool
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA", "P"])
@@ -193,6 +302,16 @@ def test_resize_matches_pil(mode, size):
     got = image_io.resize(src, mode, size)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+def test_resize_of_1_bit_matches_pil():
+    """Image.resize of a mode "1" image: NEAREST, as for palette images."""
+    img = Image.fromarray(np.random.default_rng(8).integers(0, 2, (48, 64)).astype(bool))
+    for size in ((32, 24), (31, 23), (100, 70)):
+        want = np.asarray(img.resize(size))
+        got = image_io.resize(np.asarray(img), "1", size)
+        assert got.dtype == want.dtype == bool
+        np.testing.assert_array_equal(got, want)
 
 
 def test_resize_of_16_bit_grey_is_not_ported():

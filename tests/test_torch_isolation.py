@@ -1,7 +1,8 @@
 """The port imports nothing of JAX or of the JAX package.
 
-Scans every module of frosting_tpu_torch/, chip_smoke.py, blend_ab.py and
-scan_ab.py for imports of jax, jaxlib or frosting_tpu (the exact top-level
+Scans every module of frosting_tpu_torch/, chip_smoke.py and the port's
+measurement scripts (blend_ab.py, scan_ab.py, extract_parts.py,
+cleaning_radius.py, qem_ab.py) for imports of jax, jaxlib or frosting_tpu (the exact top-level
 name: frosting_tpu is a prefix of frosting_tpu_torch), and of PIL and
 optax, which the GPU machines the port runs on do not have; imports the
 package in a fresh process where importing jax, PIL or optax fails; and
@@ -20,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "frosting_tpu", "PIL", "optax"}
 SOURCES = sorted((ROOT / "frosting_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "blend_ab.py", ROOT / "scan_ab.py", ROOT / "extract_parts.py"]
+    ROOT / "chip_smoke.py", ROOT / "blend_ab.py", ROOT / "scan_ab.py", ROOT / "extract_parts.py",
+    ROOT / "cleaning_radius.py", ROOT / "qem_ab.py"]
 
 
 def _imported_roots(path):
@@ -69,7 +71,17 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.pipeline, frosting_tpu_torch.ops.segment\n"
         "import frosting_tpu_torch.extract.texture, frosting_tpu_torch.models.mesh_bound\n"
         "import frosting_tpu_torch.train.refined_sugar, frosting_tpu_torch.models.editing\n"
-        "from frosting_tpu_torch import blender_cli, stages_cli\n"
+        "import frosting_tpu_torch.metrics, frosting_tpu_torch.cli\n"
+        "from frosting_tpu_torch import blender_cli, cli, stages_cli\n"
+        "import inspect\n"
+        "from frosting_tpu_torch import metrics, pipeline\n"
+        "from frosting_tpu_torch.extract import meshclean\n"
+        "assert cli.build_parser().parse_args(['-s', 'x']).device == 'cuda'\n"
+        "for fn in (pipeline.run_pipeline, metrics.get_lpips, metrics.LPIPS,\n"
+        "           meshclean.nearest_distances, meshclean.remove_unsupported_vertices):\n"
+        "    assert inspect.signature(fn).parameters['device'].default == 'cuda', fn\n"
+        "for cmd in ('metrics', 'full-eval'):\n"
+        "    assert stages_cli.build_parser().parse_args([cmd, '-s', 'x']).device == 'cuda'\n"
         "assert stages_cli.build_parser().parse_args(['train-sugar', '-s', 'x']).device == 'cuda'\n"
         "assert stages_cli.build_parser().parse_args(['extract-shell', '-s', 'x']).device == 'cuda'\n"
         "assert stages_cli.build_parser().parse_args(['train-frosting', '-s', 'x']).device == 'cuda'\n"

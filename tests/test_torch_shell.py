@@ -123,8 +123,9 @@ def test_density_and_gradient_match_jax_value_and_grad():
                                        beta_mode="average", density_factor=1.0).density[0]
 
     import jax
-    want_d, want_g = jax.vmap(jax.value_and_grad(density_at))(jnp.asarray(pts),
-                                                              jnp.asarray(knn_idx))
+    # jitted: one compile, not one per op of the eager vmap
+    want_d, want_g = jax.jit(jax.vmap(jax.value_and_grad(density_at)))(
+        jnp.asarray(pts), jnp.asarray(knn_idx))
     want_d, want_g = np.asarray(want_d), np.asarray(want_g)
     d, gr = fields.density_and_grad(torch.from_numpy(pts), torch.from_numpy(knn_idx),
                                     tg[0], tg[3], tg[1], tg[2])

@@ -1,13 +1,19 @@
-"""The port's command line (frosting_tpu_torch.stages_cli) on the CPU, in
-one test: its scene loading against the JAX package's, then train-gs ->
-train-sugar (entropy, photo with the hard prune, sdf) -> render, with
---device cpu, on the sphere of tests/test_cli.py::make_colmap_scene
-written by the port's scene.synthetic.write_colmap_scene."""
+"""The port's command line (frosting_tpu_torch.stages_cli) on the CPU: its
+scene loading against the JAX package's, then train-gs -> train-sugar
+(entropy, photo with the hard prune, sdf) -> render, with --device cpu,
+on the sphere of tests/test_cli.py::make_colmap_scene written by the
+port's scene.synthetic.write_colmap_scene. Then the commands that close
+the pipeline, against the JAX package's: `metrics` on one saved
+frosting.npz in both packages (metrics.json within 1e-5), `full-eval`'s
+chain of commands (recorded, not run) and `convert`'s colmap command lines
+(a fake colmap that records its argv), or its message without colmap."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from frosting_tpu import stages_cli as jax_cli
@@ -93,3 +99,106 @@ def test_load_scene_then_train_gs_train_sugar_render_on_the_cpu(tmp_path):
     got, mode = image_io.read_image(os.path.join(out, "renders", "train_00003.png"))
     assert mode == "RGB"
     np.testing.assert_array_equal(got, (img.transpose(1, 2, 0) * 255).astype(np.uint8))
+
+
+def _write_frosting(path, n=3000, seed=0):
+    """A frosting.npz (JAX's keys) around the scene's unit sphere: n
+    Gaussians in sorted random cells, coloured by position."""
+    rng = np.random.default_rng(seed)
+    verts, faces = synthetic.uv_sphere(12, 24)
+    cell = np.sort(rng.integers(0, len(faces), n)).astype(np.int32)
+    centre = verts[faces[cell]].mean(axis=1)
+    sh_dc = ((centre + 1.5) / 3.0 - 0.5) / 0.28209479177387814
+    np.savez(
+        path,
+        shell_verts=verts, inner_dist=np.full(len(verts), -0.04, np.float32),
+        outer_dist=np.full(len(verts), 0.04, np.float32),
+        bary_logits=rng.normal(0, 1, (n, 6)).astype(np.float32),
+        scales_log=np.full((n, 3), np.log(0.05), np.float32),
+        quats_raw=rng.normal(size=(n, 4)).astype(np.float32),
+        opacities_raw=np.full(n, 2.0, np.float32),
+        sh_dc=sh_dc[:, None].astype(np.float32), sh_rest=np.zeros((n, 15, 3), np.float32),
+        meta_faces=faces, meta_cell_idx=cell,
+        meta_cell_bounds=np.searchsorted(cell, np.arange(len(faces) + 1)).astype(np.int32))
+
+
+def test_metrics_command_matches_jax(tmp_path, monkeypatch):
+    """metrics on a saved frosting.npz, rendered on the held-out view, in
+    both packages: metrics.json within 1e-5 (the render's parity)."""
+    monkeypatch.delenv("FROSTING_TPU_LPIPS_WEIGHTS", raising=False)
+    scene_dir = _write_scene(str(tmp_path / "scene"))
+    outs = {}
+    for name in ("port", "jax"):
+        out = tmp_path / name
+        out.mkdir()
+        _write_frosting(out / "frosting.npz")
+        argv = ["metrics", *_common(scene_dir, str(out)), "--eval"]
+        if name == "port":
+            res = stages_cli.main(argv + ["--device", "cpu"])
+        else:
+            jax_cli.main(argv)
+        with open(out / "metrics.json") as fh:
+            outs[name] = json.load(fh)
+    assert outs["port"] == res and res["n_views"] == 1 and res["lpips"] is None
+    assert outs["port"].keys() == outs["jax"].keys()
+    for k in ("psnr", "ssim"):
+        assert abs(outs["port"][k] - outs["jax"][k]) <= 1e-5, (k, outs)
+    assert 10.0 < res["psnr"] < 60.0
+
+
+FULL_EVAL_FLAGS = {
+    "defaults": [],
+    "every-flag": ["--eval", "--white-bg", "--resolution-scale", "2", "--iterations", "300",
+                   "--capacity", "4096", "-r", "sdf", "--low-poly", "--fg-split",
+                   "--gaussians", "5000", "--use-background", "--occlusion-culling"],
+}
+
+
+@pytest.mark.parametrize("case", FULL_EVAL_FLAGS)
+def test_full_eval_runs_the_jax_chain_of_commands(case, monkeypatch):
+    """full-eval calls the same commands with the same argv as JAX's, each
+    also given the port's --device."""
+    calls = {"port": [], "jax": []}
+    monkeypatch.setattr(stages_cli, "main", lambda argv: calls["port"].append(list(argv)))
+    monkeypatch.setattr(jax_cli, "main", lambda argv: calls["jax"].append(list(argv)))
+    argv = ["full-eval", "-s", "SCENE", "-o", "OUT", *FULL_EVAL_FLAGS[case]]
+    args = stages_cli.build_parser().parse_args(argv + ["--device", "cpu"])
+    args.fn(args)
+    jargs = jax_cli.build_parser().parse_args(argv)
+    jargs.fn(jargs)
+    assert [c[0] for c in calls["jax"]] == [
+        "train-gs", "train-sugar", "extract-shell", "train-frosting", "metrics"]
+    assert len(calls["port"]) == len(calls["jax"])
+    for got, want in zip(calls["port"], calls["jax"]):
+        i = got.index("--device")
+        assert got[i + 1] == "cpu" and got[:i] + got[i + 2:] == want
+        stages_cli.build_parser().parse_args(got)  # every argv parses
+
+
+def test_convert_runs_the_jax_colmap_commands(tmp_path, monkeypatch):
+    """Without colmap on PATH both exit with the same message; with a fake
+    colmap that records its argv, both run the same three command lines."""
+    raw = tmp_path / "raw"
+    (raw / "input").mkdir(parents=True)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    exits = []
+    for mod in (stages_cli, jax_cli):
+        with pytest.raises(SystemExit) as e:
+            mod.main(["convert", "-s", str(raw)])
+        exits.append(e.value.code)
+    assert exits[0] == exits[1] and "colmap" in exits[0]
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    fake = bin_dir / "colmap"
+    fake.write_text('#!/bin/sh\necho "$@" >> "$COLMAP_LOG"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bin_dir}:/usr/bin:/bin")
+    logs = []
+    for name, mod in (("port", stages_cli), ("jax", jax_cli)):
+        monkeypatch.setenv("COLMAP_LOG", str(tmp_path / f"{name}.log"))
+        mod.main(["convert", "-s", str(raw)])
+        logs.append((tmp_path / f"{name}.log").read_text().splitlines())
+    assert logs[0] == logs[1] and [line.split()[0] for line in logs[0]] == [
+        "feature_extractor", "exhaustive_matcher", "mapper"]
+    assert (raw / "distorted").is_dir()
