@@ -135,6 +135,24 @@ Phases (any failure raises and exits nonzero):
      frame; frame 0 against the in-process render; adaptation, SVD and
      render timed per frame). train-refined-sugar runs last, once the
      second stage-3 run has written its 200k-vertex mesh.
+  9. sharded path (phase_parallel), in the thread beside the first stage-3
+     run's QEM, after the pipeline paths (it takes their full-width
+     frosting_init.npz): B1 and B2 held against their plain versions on a
+     middle strip's blend inputs (strip 1 of 4 of the 1M scene at
+     1920x1088), then the entry point python -m frosting_tpu_torch.parallel
+     in processes of its own, at 1920x1088 (whole 16-row tiles), two runs at
+     once: a world of one NCCL rank (the replicated 3DGS step at 1M twice,
+     bitwise, against gs_trainer.train_step), and four gloo ranks on the one
+     card under torchrun (a 2 x 2 mesh: the 3DGS step at 1M against the single-process
+     batch-mean step, shard_params against replicated with capacity / 4
+     rows a rank, three more steps and a sharded densify that grows the
+     cloud, the 1 x 4 exchange against the all-gather; SuGaR's photo,
+     entropy and sdf (density) steps and the depth strips against the full
+     depth render; the Frosting step at 2M with 65,536 background Gaussians
+     replicated and with shard_params against the single-process batch-mean
+     step); every rank's launches as predicted (PAR_LAUNCHES), its steps'
+     parts, collective bytes and peak memory logged. Four ranks on one card
+     over gloo measure correctness and cost, not scaling.
 Paths 3-7 do not wait for the stages path: they run first in the thread
 beside stage 3's host QEM (phase_preamble), where the card is otherwise
 idle, then the stage 1-2 commands and the pipeline paths of path 8. Each
@@ -153,6 +171,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1235,6 +1254,13 @@ def phase_stages(raw, model, preamble):
             pipes["launches"], timings["pipelines"] = phase_pipelines(
                 tmp, pipes["scene_dir"], weights)
             torch.cuda.empty_cache()
+            stamp("the sharded path (beside the QEM)")
+            t0 = time.perf_counter()
+            pipes["parallel_launches"], timings["parallel"], timings[
+                "parallel_max_abs_err"] = phase_parallel(
+                tmp, model, os.path.join(tmp, "pipeline_cache", "frosting_init.npz"))
+            timings["parallel"]["phase_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
             stamp("the work beside the QEM ends")
             return launches
 
@@ -1273,6 +1299,7 @@ def phase_stages(raw, model, preamble):
         log(f"extract-texture, blender_cli and train-refined-sugar phases (the wait for the "
             f"second stage-3 run included): {timings['stage6_and_editing_s']:.1f} s")
         del os.environ["FROSTING_TPU_LPIPS_WEIGHTS"]
+    frosting_launches["parallel"] = pipes["parallel_launches"]
     return pipes["preamble"], launches, extract_launches, frosting_launches, timings
 
 
@@ -2634,6 +2661,148 @@ def phase_pipelines(tmp, scene_dir, weights):
     return launches, res
 
 
+# The sharded path (phase_parallel): 1920 x 1088, whole 16-row tiles for 2
+# or 4 strips (1080 is not a multiple of 16; the JAX package does not pad).
+PAR_H = 1088
+PAR_BG = 65_536  # background Gaussians added to the pipeline's Frosting init
+PAR_SDF_SAMPLES = 200_000  # SugarTrainConfig's default, split over the ranks
+PAR_TIMEOUT_S = 900
+# Launches per rank (B1, B2), one strip per rank and step: the world of one
+# runs the replicated 3DGS step twice; each gloo rank the replicated step
+# twice, shard_params once, three more and one after the densify (5), the
+# 1 x 4 all-gather and exchange steps (2), a SuGaR step per phase (3) and
+# one depth strip (B1 only), and the Frosting step replicated and with
+# shard_params (2).
+PAR_LAUNCHES = {"nccl_1x1": (2, 2), "gloo_2x2": (2 + 5 + 2 + 3 + 1 + 2, 2 + 5 + 2 + 3 + 2)}
+
+
+def _start_entry(argv, log_path):
+    """Start argv (the parallel entry point, or torchrun over it) in a
+    process group of its own, its output to log_path."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as fh:
+        return subprocess.Popen(argv, cwd=root, stdout=fh, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+
+
+def _finish_entry(label, proc, log_path, deadline):
+    """Wait for a _start_entry process until the deadline (perf_counter
+    seconds), killing its whole group past it; log its output. Returns the
+    exit code."""
+    try:
+        return proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except BaseException:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise
+    finally:
+        with open(log_path) as fin:
+            for line in fin.read().splitlines():
+                if not ("socket.cpp" in line or line.startswith("[W")):
+                    log(f"  [{label}] {line}")
+
+
+def phase_parallel(tmp, model, frosting_init):
+    """The sharded path on the card through its entry point (python -m
+    frosting_tpu_torch.parallel): a world of one NCCL rank (the 3DGS step on a
+    1 x 1 mesh against gs_trainer.train_step) and, at the same time, four
+    gloo ranks on the one card (torchrun; every check at 1920 x 1088: 3DGS at 1M Gaussians,
+    replicated 2 x 2 against the single-process batch-mean step, shard_params
+    against replicated, densify, the 1 x 4 exchange; SuGaR's three phases
+    and depth strips; Frosting at 2M with background Gaussians on the
+    pipeline path's frosting_init.npz). B1 and B2 are held against their
+    plain versions on a middle strip's blend inputs first. Four ranks on one
+    card over gloo measure correctness and cost, not scaling. Returns
+    (launches per run and rank, results, max abs error per kernel)."""
+    from frosting_tpu_torch.parallel.sharded_train import strip_config
+    from frosting_tpu_torch.raster.preprocess import shift_projected
+
+    res, launches = {}, {}
+    # B1 and B2 on strip 1 of 4 of the 1M scene at 1920 x 1088
+    full = RasterConfig(width=MAIN_W, height=PAR_H, chunk=128, max_instances=STAGE_MAX_INSTANCES)
+    s_cfg = strip_config(full, 4)
+    cam = viewer._orbit_camera(*TRAIN_ORBITS[0], ORBIT_R, device=DEV)
+    with torch.no_grad():
+        proj = shift_projected(preprocess(*model, cam, full), (0, s_cfg.height), s_cfg)
+        binned = bin_gaussians(proj.rect, proj.depths, proj.valid, s_cfg)
+        fields = pack_fields(proj)
+    label = f"strip 1 of 4 ({MAIN_W}x{s_cfg.height} of {MAIN_W}x{PAR_H})"
+    max_err = {"blend_forward": compare(label, fields, binned, s_cfg),
+               "blend_backward": compare_backward(label, fields, binned, s_cfg)}
+    del proj, binned, fields
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"parallel: the card's free memory before the ranks start {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB")
+    common = ["--device", "cuda", "--width", str(MAIN_W), "--height", str(PAR_H),
+              "--gaussians", str(MAIN_N), "--jitter", str(TRAIN_JITTER),
+              "--max-instances", str(STAGE_MAX_INSTANCES),
+              "--sdf-samples", str(PAR_SDF_SAMPLES)]
+    entry = [sys.executable, "-m", "frosting_tpu_torch.parallel"]
+    runs = {
+        "nccl_1x1": entry + [*common, "--backend", "nccl", "--mesh", "1x1", "--checks", "gs"],
+        "gloo_2x2": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", "4", "-m", "frosting_tpu_torch.parallel", *common,
+                     "--backend", "gloo", "--mesh", "2x2", "--checks", "all",
+                     "--frosting-init", frosting_init, "--background", str(PAR_BG)],
+    }
+    # both runs at once: the world of one is short, and the gloo ranks spend
+    # most of theirs on the host (start-up, scene, the all-reduce's copies)
+    stamp("parallel: the NCCL world of one and the four gloo ranks")
+    t0 = time.perf_counter()
+    procs = {name: _start_entry(argv + ["--out", os.path.join(tmp, f"parallel_{name}.json")],
+                                os.path.join(tmp, f"parallel_{name}.log"))
+             for name, argv in runs.items()}
+    codes = {}
+    try:
+        for name, proc in procs.items():
+            codes[name] = _finish_entry(name, proc, os.path.join(tmp, f"parallel_{name}.log"),
+                                        t0 + PAR_TIMEOUT_S)
+            res.setdefault(name, {})["command_s"] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    for name in runs:
+        out = os.path.join(tmp, f"parallel_{name}.json")
+        secs = res[name]["command_s"]
+        if codes[name] != 0 or not os.path.exists(out):
+            raise AssertionError(f"parallel {name}: exit {codes[name]}")
+        with open(out) as fh:
+            report = json.load(fh)
+        if report["failed"]:
+            raise AssertionError(f"parallel {name}: {report['failed']}")
+        ranks = report["parallel"]
+        res[name]["ranks"] = ranks
+        want = dict(zip(("blend_forward", "blend_backward"), PAR_LAUNCHES[name]))
+        for r in ranks:
+            log(f"parallel {name} rank {r['rank']} ({r['backend']}, mesh {r['mesh']}): "
+                f"{r['seconds']:.1f} s, peak {r.get('peak_gib', 0):.2f} GiB, free at start "
+                f"{r.get('free_gib_at_start', 0):.2f} GiB, launches {r['launches']} "
+                f"(predicted {want})")
+            for step, entry_ in r["data"].items():
+                ms = entry_.get("ms", {})
+                coll = entry_.get("collectives", {})
+                log(f"  rank {r['rank']} {step}: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in ms.items()) + " ms; collectives " + ", ".join(
+                    f"{k} {v}" for k, v in coll.items() if k.endswith("bytes")))
+            if r["launches"] != want:
+                raise AssertionError(f"parallel {name} rank {r['rank']}: launches "
+                                     f"{r['launches']}, predicted {want}")
+        launches[name] = want
+        log(f"parallel {name}: {secs:.1f} s from the start of both runs to its end; rank 0's "
+            "checks:")
+        for step, entry_ in ranks[0]["data"].items():
+            held = {k: v for k, v in entry_.items()
+                    if k not in ("ms", "collectives", "launches", "parity")}
+            log(f"  {step}: {json.dumps(held)}")
+    log("parallel: four ranks on one card over gloo measure correctness and cost, not "
+        "scaling (they share one card and copy every collective through host memory; the "
+        "world of one runs beside them)")
+    return launches, res, max_err
+
+
 def hold_learned_shell(params, meta, cam, gt, rcfg):
     """Two learned-shell, regularised refinement steps at full width from one
     state (the offsets' gradient through the cell corners' and the normal
@@ -3097,7 +3266,7 @@ def main():
         raw, model, phase_preamble)
     log(json.dumps({"stages": stage_times}))
     max_err = pre.max_err
-    for errs in (stage_times["depth_render_max_abs_err"],
+    for errs in (stage_times["depth_render_max_abs_err"], stage_times["parallel_max_abs_err"],
                  *stage_times["frosting"]["max_abs_err"].values(),
                  stage_times["refined_sugar"]["max_abs_err"]):
         for name, err in errs.items():
@@ -3127,6 +3296,9 @@ def main():
                 "cli_tiny": frosting_launches["cli_tiny"][name],
                 "pipeline_full_width": frosting_launches["pipeline_full_width"][name],
                 "pipeline_resumed": frosting_launches["pipeline_resumed"][name],
+                # per rank: a world of one NCCL rank; each of four gloo ranks
+                "parallel_nccl_1x1_rank": frosting_launches["parallel"]["nccl_1x1"][name],
+                "parallel_gloo_2x2_rank": frosting_launches["parallel"]["gloo_2x2"][name],
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs

@@ -215,8 +215,11 @@ def main(argv=None):
     """Run the pipeline; returns (run_pipeline's result, the metrics or
     None)."""
     from frosting_tpu_torch import pipeline
+    from frosting_tpu_torch.parallel import multihost
 
     args = build_parser().parse_args(argv)
+    # a no-op in one process; under a launcher, the process group first
+    multihost.initialize(device=args.device)
     scene, cams, gt, rcfg, out_dir = load_scene(args)
     cfg = build_config(args, scene.spatial_extent)
     out = pipeline.run_pipeline(cams, gt, scene.points, scene.colors, scene.spatial_extent,

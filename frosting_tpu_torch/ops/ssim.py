@@ -2,8 +2,8 @@
 
 Counterpart of ``frosting_tpu/ops/ssim.py`` (reference loss_utils.py:17-63:
 11x11 Gaussian window, sigma 1.5, per-channel depthwise convolution with
-SAME zero padding, C1 = 0.01^2, C2 = 0.03^2). The strip-sharded SSIM of the
-multi-device trainer is not ported yet.
+SAME zero padding, C1 = 0.01^2, C2 = 0.03^2), with the strip-sharded SSIM
+of the multi-device steps (``ssim_strips``).
 
 The JAX package runs the window at ``Precision.HIGHEST``. cuDNN runs float32
 convolutions in TF32 by default (``torch.backends.cudnn.allow_tf32``), which
@@ -87,6 +87,45 @@ def ssim(
     sigma: float = 1.5,
 ) -> torch.Tensor:
     return torch.mean(_ssim_map(img1, img2, window_size, sigma))
+
+
+def _exchange_row_halo(x: torch.Tensor, mesh, axis: str, h: int) -> torch.Tensor:
+    """[C, H, W] strip -> [C, H + 2h, W] with h rows of halo from the strip
+    neighbours along the mesh axis (zeros at the image's top and bottom, as
+    the full image's SAME zero padding). Every rank takes part in both
+    shifts, and in their backward, wherever its strip lies."""
+    from frosting_tpu_torch.parallel import collectives
+
+    n = mesh.axis_size(axis)
+    idx = mesh.axis_index(axis)
+    # our bottom halo is the next strip's top rows: every rank sends its
+    # top block up by one, and its bottom block down by one
+    from_next = collectives.ppermute(x[:, :h], mesh, axis, -1)
+    from_prev = collectives.ppermute(x[:, -h:], mesh, axis, 1)
+    first = torch.tensor(idx == 0, device=x.device)
+    last = torch.tensor(idx == n - 1, device=x.device)
+    from_prev = torch.where(first, 0.0, from_prev)
+    from_next = torch.where(last, 0.0, from_next)
+    return torch.cat([from_prev, x, from_next], dim=1)
+
+
+def ssim_strips(
+    img1: torch.Tensor,  # [C, strip_h, W] this rank's horizontal strip
+    img2: torch.Tensor,
+    mesh,
+    axis: str = "tile",
+    window_size: int = 11,
+    sigma: float = 1.5,
+) -> torch.Tensor:
+    """This strip's share of the full image's SSIM: halo rows come from the
+    neighbour strips (``parallel.collectives.ppermute``), so the windows
+    cross the seams as in the full image, and the mean over the strips
+    equals ``ssim`` of the whole image."""
+    h = window_size // 2
+    p1 = _exchange_row_halo(img1, mesh, axis, h)
+    p2 = _exchange_row_halo(img2, mesh, axis, h)
+    m = _ssim_map(p1, p2, window_size, sigma)
+    return torch.mean(m[:, h:-h])
 
 
 def dssim(img1, img2, **kw):

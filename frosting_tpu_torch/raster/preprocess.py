@@ -48,7 +48,13 @@ def preprocess(
     colors_precomp: torch.Tensor | None = None,
     cov3d_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    pixel_offset=(0, 0),
 ) -> Projected:
+    """``pixel_offset`` (ox, oy): the projection is always in the full
+    image's pixel frame (``cfg.projection_width`` / ``projection_height``);
+    the means are then shifted into the frame of the rendered sub-rectangle
+    whose top-left pixel is (ox, oy), and the tile rect is taken against
+    ``cfg``'s grid there."""
     deg = cfg.sh_degree if active_sh_degree is None else active_sh_degree
     camera = camera.to(means3d.device)
     f32 = torch.float32
@@ -61,8 +67,8 @@ def preprocess(
     p_hom = cov_ops.matvec_rows(homog, camera.full_proj)
     p_w = 1.0 / (p_hom[..., 3] + 1e-7)
     ndc = p_hom[..., :2] * p_w[..., None]
-    mean_x = ndc_to_pix(ndc[..., 0], cfg.projection_width)
-    mean_y = ndc_to_pix(ndc[..., 1], cfg.projection_height)
+    mean_x = ndc_to_pix(ndc[..., 0], cfg.projection_width) - pixel_offset[0]
+    mean_y = ndc_to_pix(ndc[..., 1], cfg.projection_height) - pixel_offset[1]
     means2d = torch.stack([mean_x, mean_y], dim=-1)
 
     if cov3d_precomp is None:
@@ -125,6 +131,55 @@ def preprocess(
         rect=rect,
         valid=valid,
     )
+
+
+def rect_for_grid(means2d: torch.Tensor, radii: torch.Tensor, cfg: RasterConfig):
+    """(rect [N, 4] int32, valid [N] bool) of already-projected Gaussians
+    against cfg's tile grid, from the isotropic radius (used when a
+    projection is re-targeted to a sub-rectangle)."""
+    r = radii.to(torch.float32)
+    mean_x, mean_y = means2d[..., 0], means2d[..., 1]
+    tx0 = _tile_index(torch.ceil(mean_x - r), cfg.tile_w, cfg.tiles_x)
+    ty0 = _tile_index(torch.ceil(mean_y - r), cfg.tile_h, cfg.tiles_y)
+    tx1 = _tile_index(torch.floor(mean_x + r), cfg.tile_w, cfg.tiles_x, 1)
+    ty1 = _tile_index(torch.floor(mean_y + r), cfg.tile_h, cfg.tiles_y, 1)
+    tx1 = torch.maximum(tx1, tx0)
+    ty1 = torch.maximum(ty1, ty0)
+    area = (tx1 - tx0) * (ty1 - ty0)
+    valid = (radii > 0) & (area > 0)
+    return torch.stack([tx0, ty0, tx1, ty1], dim=-1), valid
+
+
+def shift_projected(
+    proj: Projected,
+    pixel_offset,
+    strip_cfg: RasterConfig,
+    tile_aligned: bool | None = None,
+) -> Projected:
+    """Re-target a full-image projection to a sub-rectangle (a strip) whose
+    top-left pixel is pixel_offset = (ox, oy) of ints: the 2D means move into
+    its pixel frame and the tile rect is taken against strip_cfg's grid.
+    Where the offset is a whole number of tiles (``tile_aligned``; found
+    from the ints where None), the full image's anisotropic rect is shifted
+    exactly, so a strip covers the same instances as the full render's rows
+    of tiles; otherwise the rect is re-derived from the isotropic radius
+    (``rect_for_grid``)."""
+    ox, oy = int(pixel_offset[0]), int(pixel_offset[1])
+    if tile_aligned is None:
+        tile_aligned = ox % strip_cfg.tile_w == 0 and oy % strip_cfg.tile_h == 0
+    means2d = proj.means2d - torch.tensor(
+        [ox, oy], dtype=torch.float32, device=proj.means2d.device)
+    if tile_aligned:
+        tox, toy = ox // strip_cfg.tile_w, oy // strip_cfg.tile_h
+        tx0 = torch.clamp(proj.rect[:, 0] - tox, 0, strip_cfg.tiles_x)
+        ty0 = torch.clamp(proj.rect[:, 1] - toy, 0, strip_cfg.tiles_y)
+        tx1 = torch.clamp(proj.rect[:, 2] - tox, 0, strip_cfg.tiles_x)
+        ty1 = torch.clamp(proj.rect[:, 3] - toy, 0, strip_cfg.tiles_y)
+        rect = torch.stack([tx0, ty0, tx1, ty1], dim=-1)
+        valid = proj.valid & ((tx1 - tx0) * (ty1 - ty0) > 0)
+    else:
+        rect, valid = rect_for_grid(means2d, proj.radii, strip_cfg)
+    return proj._replace(means2d=means2d, rect=rect, valid=valid)
 
 
 def pack_fields(proj: Projected) -> torch.Tensor:

@@ -15,7 +15,7 @@ Gradients through preprocess come from autograd.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -109,12 +109,15 @@ def render(
     cov3d_precomp: Optional[torch.Tensor] = None,
     scale_modifier: float = 1.0,
     means2d_probe: Optional[torch.Tensor] = None,
+    pixel_offset=(0, 0),
 ) -> RenderOutput:
     """Gaussian-splat render of one camera, on the device of the inputs.
 
     `means2d_probe`: optional zeros [N, 2] added to the projected 2D means;
     its gradient is the screen-space positional gradient that densification
-    reads.
+    reads. `pixel_offset` (ox, oy): render the sub-rectangle of the
+    projection's full image (cfg.proj_width x cfg.proj_height) whose top-left
+    pixel is (ox, oy), cfg.width x cfg.height in size.
     """
     proj = preprocess(
         means3d, scales, quats, opacities, sh, camera, cfg,
@@ -122,6 +125,7 @@ def render(
         colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp,
         scale_modifier=scale_modifier,
+        pixel_offset=pixel_offset,
     )
     if means2d_probe is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_probe)
@@ -129,14 +133,25 @@ def render(
 
 
 def render_projected(
-    proj: Projected, cfg: RasterConfig, bg: Optional[torch.Tensor] = None
+    proj: Projected,
+    cfg: RasterConfig,
+    bg: Optional[torch.Tensor] = None,
+    mark: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
-    """Blend an already-projected Gaussian set."""
+    """Blend an already-projected Gaussian set. ``mark(name)``, where given,
+    is called as the binning and the forward blend end (a timer's hook)."""
     dev = proj.means2d.device
     bg = torch.zeros(3, device=dev) if bg is None else bg.to(dev)
+    forward_fn = blend_forward
+    if mark is not None:
+        def forward_fn(fields, binned, cfg):
+            mark("binning")
+            out = blend_forward(fields, binned, cfg)
+            mark("B1")
+            return out
     out, num_instances, overflow = BlendFunction.apply(
         pack_fields(proj), proj.rect.detach(), proj.depths.detach(),
-        proj.valid.detach(), cfg, blend_forward, blend_backward,
+        proj.valid.detach(), cfg, forward_fn, blend_backward,
     )
     t_final = out[3]
     image = out[:3] + t_final[None] * bg[:, None, None]

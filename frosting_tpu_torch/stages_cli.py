@@ -484,7 +484,11 @@ def main(argv=None):
     models; train-refined-sugar: its metrics, timings and trained model;
     extract-texture: its timings and texel statistics; metrics: the
     metrics)."""
+    from frosting_tpu_torch.parallel import multihost
+
     args = build_parser().parse_args(argv)
+    # a no-op in one process; under a launcher, the process group first
+    multihost.initialize(device=getattr(args, "device", "cuda"))
     return args.fn(args)
 
 

@@ -7,7 +7,9 @@ rasterizer, the query KNN, marching tetrahedra, the Poisson solve (its
 indicator bitwise equal over two runs) and a small extract_shell, each on
 the card against the CPU; stages 4-5: init_frosting (bitwise over two
 calls), the corner blend's backward (bitwise over two calls, against the
-plain gather) and one refinement step, each against the CPU. Marked `gpu`: every test skips without a CUDA device. This
+plain gather) and one refinement step, each against the CPU; the sharded
+path: B1 and B2 on a middle strip's blend inputs, and a world of one NCCL
+rank whose sharded step equals the single-process step. Marked `gpu`: every test skips without a CUDA device. This
 file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -981,3 +983,79 @@ def test_bake_and_adaptation_on_the_card_equal_the_cpu(cuda):
     qa, qb = edits[1].sh_rotations.cpu(), edits[0].sh_rotations
     err = torch.minimum((qa - qb).abs().amax(-1), (qa + qb).abs().amax(-1))
     assert bool((err <= bound[m.cell_idx.cpu()]).all()), (err - bound[m.cell_idx.cpu()]).max()
+
+
+def _strip_inputs(cuda, n_tile, t):
+    """B1's and B2's inputs on strip t of n_tile at 256 x 256: the full
+    image's projection shifted into the strip (parallel.sharded_train)."""
+    from frosting_tpu_torch.parallel.sharded_train import strip_config
+    from frosting_tpu_torch.raster.preprocess import shift_projected
+
+    gs = gaussian_blob_scene(n=20_000, seed=1, device=cuda)
+    cam = look_at_camera(eye=[0.3, -2.6, 1.0], target=[0, 0, 0], up=(0, 0, 1),
+                         device=cuda)
+    full = RasterConfig(width=256, height=256, max_instances=1 << 22)
+    s_cfg = strip_config(full, n_tile)
+    proj = shift_projected(preprocess(*gs, cam, full), (0, t * s_cfg.height), s_cfg)
+    binned = bin_gaussians(proj.rect, proj.depths, proj.valid, s_cfg)
+    return pack_fields(proj), binned, s_cfg
+
+
+def test_strip_kernels_match_plain_versions(cuda):
+    """A middle strip (1 of 4): a config whose height is H / 4 and whose
+    projection height is H, rects shifted by shift_projected."""
+    fields, binned, cfg = _strip_inputs(cuda, 4, 1)
+    assert cfg.height == 64 and cfg.projection_height == 256
+    out = blend_cuda.blend_forward(fields, binned, cfg)
+    ref = blend_forward_torch(fields, binned, cfg)
+    err = (out - ref).abs()
+    assert (err > 1e-5 + 1e-5 * ref.abs()).float().mean().item() <= 1e-3
+    assert err.max().item() <= 1e-2
+    g = _cotangent(out)
+    _assert_rows_match(blend_cuda.blend_backward(fields, binned, cfg, out, g),
+                       blend_backward_torch(fields, binned, cfg, out, g))
+
+
+def test_one_rank_nccl_step_equals_the_single_process_step(cuda):
+    """A world of one NCCL rank: the sharded 3DGS step on a 1 x 1 mesh
+    against gs_trainer.train_step on the same inputs (the port's parity
+    rule for a step)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from frosting_tpu_torch.parallel import collectives
+    from frosting_tpu_torch.parallel import sharded_train as st
+
+    if not dist.is_nccl_available():
+        pytest.skip("needs NCCL")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    collectives.init_process_group("nccl", 0, 1, f"tcp://127.0.0.1:{port}", 60.0,
+                                   device=cuda)
+    try:
+        mesh = st.make_mesh(1, 1, device=cuda)
+        rcfg = RasterConfig(width=128, height=96, max_instances=1 << 18)
+        gt = gaussian_blob_scene(n=2_000, seed=0, device=cuda)
+        cams = synthetic.camera_ring(n_cams=1, radius=3.0, device=cuda)
+        gt_imgs = synthetic.render_gt_images(gt, cams, rcfg, np.zeros(3, np.float32))
+        pts, cols = synthetic.degraded_init(gt, keep=0.5, jitter=0.03)
+        cfg = gs_trainer.GSTrainConfig(capacity=2048)
+        state, opt = gs_trainer.init_state(pts, cols, 3.3, cfg, device=cuda)
+        ref = gs_trainer.clone_state(state)
+        camera, gt_strip = st.shard_batch(mesh, cams, gt_imgs)
+        _, m = st.make_sharded_train_step(opt, rcfg, cfg, mesh)(state, camera, gt_strip)
+        _, m_ref = gs_trainer.train_step(ref, cams[0], torch.from_numpy(gt_imgs[0]).to(cuda),
+                                         opt, rcfg, cfg, cfg.sh_degree)
+        assert float(m["loss"]) == pytest.approx(float(m_ref["loss"]), rel=1e-5)
+        lrs = {"means3d": 1.6e-4 * 3.3, "sh_dc": 2.5e-3, "sh_rest": 2.5e-3 / 20,
+               "opacities_raw": 0.05, "scales_log": 5e-3, "quats_raw": 1e-3}
+        for g, lr in lrs.items():
+            got, want = getattr(state.params, g), getattr(ref.params, g)
+            err = (got - want).abs()
+            assert (err > 1e-5 + 1e-4 * want.abs()).float().mean().item() <= 0.01, g
+            assert err.max().item() <= 2 * lr + 1e-6, g
+        assert mesh.stats["all_reduce_calls"] >= 1
+    finally:
+        dist.destroy_process_group()

@@ -72,11 +72,17 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.extract.texture, frosting_tpu_torch.models.mesh_bound\n"
         "import frosting_tpu_torch.train.refined_sugar, frosting_tpu_torch.models.editing\n"
         "import frosting_tpu_torch.metrics, frosting_tpu_torch.cli\n"
+        "import frosting_tpu_torch.parallel.collectives, frosting_tpu_torch.parallel.exchange\n"
+        "import frosting_tpu_torch.parallel.sharded_train, frosting_tpu_torch.parallel.multihost\n"
+        "import frosting_tpu_torch.parallel.sharded_sugar\n"
+        "import frosting_tpu_torch.parallel.sharded_frosting\n"
+        "import frosting_tpu_torch.parallel.__main__ as parallel_main\n"
         "from frosting_tpu_torch import blender_cli, cli, stages_cli\n"
         "import inspect\n"
         "from frosting_tpu_torch import metrics, pipeline\n"
         "from frosting_tpu_torch.extract import meshclean\n"
         "assert cli.build_parser().parse_args(['-s', 'x']).device == 'cuda'\n"
+        "assert parallel_main.parse_args([]).device == 'cuda'\n"
         "for fn in (pipeline.run_pipeline, metrics.get_lpips, metrics.LPIPS,\n"
         "           meshclean.nearest_distances, meshclean.remove_unsupported_vertices):\n"
         "    assert inspect.signature(fn).parameters['device'].default == 'cuda', fn\n"
