@@ -133,11 +133,13 @@ Phases (any failure raises and exits nonzero):
      blender_cli on a 1M-vertex, two-bone package over 4 frames, complex
      adaptation with occlusion culling and simple adaptation (B1 once per
      frame; frame 0 against the in-process render; adaptation, SVD and
-     render timed per frame). train-refined-sugar runs last, once the
-     second stage-3 run has written its 200k-vertex mesh.
-  9. sharded path (phase_parallel), in the thread beside the first stage-3
-     run's QEM, after the pipeline paths (it takes their full-width
-     frosting_init.npz): B1 and B2 held against their plain versions on a
+     render timed per frame). train-refined-sugar runs once the second
+     stage-3 run has written its 200k-vertex mesh.
+  9. sharded path (phase_parallel), last, after train-refined-sugar: it
+     takes the pipeline paths' full-width frosting_init.npz, and the second
+     stage-3 run has ended (its device work after its QEM and the ranks'
+     ~40 GiB do not fit on the card together): B1 and B2 held against
+     their plain versions on a
      middle strip's blend inputs (strip 1 of 4 of the 1M scene at
      1920x1088), then the entry point python -m frosting_tpu_torch.parallel
      in processes of its own, at 1920x1088 (whole 16-row tiles), two runs at
@@ -153,6 +155,24 @@ Phases (any failure raises and exits nonzero):
      step); every rank's launches as predicted (PAR_LAUNCHES), its steps'
      parts, collective bytes and peak memory logged. Four ranks on one card
      over gloo measure correctness and cost, not scaling.
+ 10. the multi-device pipeline (phase_pipeline_multichip), in the thread
+     beside the first stage-3 run's QEM, after the pipeline paths: B1 and B2
+     held against their plain versions on a strip of the script's shape
+     (128x32 of 128x128, 32x16 tiles), then python -m frosting_tpu_torch.parallel.pipeline (stages
+     1-5, the sharded 3DGS, SuGaR and Frosting steps chained, stages 3-4 on
+     rank 0 and broadcast, the eval on rank 0) in processes of its own, two
+     runs at once: a world of one NCCL rank at full width (the 1M bench
+     scene over 8 views at 1920x1088, capacity 2^20, 20 / 20 / 20
+     iterations, Poisson 256^3 with a 200k target, 2M Frosting Gaussians)
+     and eight gloo ranks on the card on the JAX script's 2 x 4 mesh at its
+     shapes and 150 / 100 / 150 iterations, held to PIPELINE_MC.json's
+     known answers (copied here: stage 1's first loss within 1e-4 of
+     0.1036, eval PSNR >= 34 dB, 1024 rows a rank); both with every rank's
+     launches per stage as predicted (pmc_launches), the replicated and
+     broadcast tensors' digests equal on every rank, stage 1's first step
+     held against the single-process step, finite losses whose last-10 mean
+     lies below the first (stage 2 per phase; at full width not its sdf
+     phase).
 Paths 3-7 do not wait for the stages path: they run first in the thread
 beside stage 3's host QEM (phase_preamble), where the card is otherwise
 idle, then the stage 1-2 commands and the pipeline paths of path 8. Each
@@ -1243,7 +1263,8 @@ def phase_stages(raw, model, preamble):
 
         def beside_qem():
             """Paths 3-7, the stage 1-2 commands, then the coloured sphere's
-            scene and the pipeline paths on it: nothing of stage 3's."""
+            scene and the pipeline paths on it, and the multi-device
+            pipeline: nothing of stage 3's."""
             pipes["preamble"] = preamble(raw)
             torch.cuda.empty_cache()
             stamp("stages 1-2 (beside the QEM)")
@@ -1254,12 +1275,10 @@ def phase_stages(raw, model, preamble):
             pipes["launches"], timings["pipelines"] = phase_pipelines(
                 tmp, pipes["scene_dir"], weights)
             torch.cuda.empty_cache()
-            stamp("the sharded path (beside the QEM)")
             t0 = time.perf_counter()
-            pipes["parallel_launches"], timings["parallel"], timings[
-                "parallel_max_abs_err"] = phase_parallel(
-                tmp, model, os.path.join(tmp, "pipeline_cache", "frosting_init.npz"))
-            timings["parallel"]["phase_s"] = time.perf_counter() - t0
+            pipes["pmc_launches"], timings["pipeline_multichip"], timings[
+                "pipeline_multichip_max_abs_err"] = phase_pipeline_multichip(tmp)
+            timings["pipeline_multichip"]["phase_s"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
             stamp("the work beside the QEM ends")
             return launches
@@ -1298,8 +1317,18 @@ def phase_stages(raw, model, preamble):
         timings["stage6_and_editing_s"] = time.perf_counter() - t0
         log(f"extract-texture, blender_cli and train-refined-sugar phases (the wait for the "
             f"second stage-3 run included): {timings['stage6_and_editing_s']:.1f} s")
+        # last, once the second stage-3 run has ended: its device work after
+        # its QEM and the gloo ranks' ~40 GiB do not fit on the card together
+        torch.cuda.empty_cache()
+        stamp("the sharded path")
+        t0 = time.perf_counter()
+        pipes["parallel_launches"], timings["parallel"], timings[
+            "parallel_max_abs_err"] = phase_parallel(
+            tmp, model, os.path.join(tmp, "pipeline_cache", "frosting_init.npz"))
+        timings["parallel"]["phase_s"] = time.perf_counter() - t0
         del os.environ["FROSTING_TPU_LPIPS_WEIGHTS"]
     frosting_launches["parallel"] = pipes["parallel_launches"]
+    frosting_launches["pipeline_multichip"] = pipes["pmc_launches"]
     return pipes["preamble"], launches, extract_launches, frosting_launches, timings
 
 
@@ -2803,6 +2832,197 @@ def phase_parallel(tmp, model, frosting_init):
     return launches, res, max_err
 
 
+# The multi-device pipeline (phase_pipeline_multichip): stages 1-5 with the
+# sharded stages 1, 2 and 5, python -m frosting_tpu_torch.parallel.pipeline.
+PMC_TIMEOUT_S = 900
+# (a) full width, a world of one NCCL rank: the bench scene's 1M Gaussians
+# over 8 views at 1920 x 1088, iterations cut to 20 / 20 / 20 (from 150 /
+# 100 / 150), Poisson 256^3 and a 200k target, 2M Frosting Gaussians
+PMC_FULL_ITERS = (20, 20, 20)
+PMC_FULL_CAPACITY = 1 << 20
+PMC_FULL_POISSON, PMC_FULL_TARGET = 256, 200_000
+# (b) the script's own mesh and shapes: 8 gloo ranks on the card, 2 x 4 at
+# 128^2, its 150 / 100 / 150 iterations. The known answers of the JAX
+# package's run (PIPELINE_MC.json: 8 virtual CPU devices): stage 1's first
+# loss 0.1036 (rounded to four digits; the scene, the init and the first
+# batch are the same numpy draws), eval PSNR 36.08 dB, 8192 / 8 rows a chip
+PMC_JAX_LOSS_FIRST, PMC_LOSS_FIRST_TOL = 0.1036, 1e-4
+PMC_PSNR_MIN = 34.0  # dB
+PMC_ROWS = 1024
+PMC_RANKS = 8
+# Launches per rank and stage (B1, B2): the ground truth's 8 views and 3
+# held-out views once each; one B1 and one B2 a step of stages 1, 2
+# (density: no depth strip) and 5; on rank 0 one B1 a view in stage 3's
+# extraction (8) and a held-out view in the eval (3).
+
+
+def pmc_launches(iters, rank):
+    n1, n2, n5 = iters
+    zero = [0, 0]
+    return {"scene": [11, 0], "gs_sharded": [n1, n1], "sugar_sharded": [n2, n2],
+            "shell": [8, 0] if rank == 0 else zero, "frosting_init": zero,
+            "refine_sharded": [n5, n5], "eval": [3, 0] if rank == 0 else zero}
+
+
+def _check_losses(label, name, losses, phases=None, may_rise=()):
+    """Finite, and the mean of the last 10 below the first: stage 2 per
+    phase, since its sdf terms join the loss at the switch; a phase named
+    in may_rise ("stage" or "stage phase") is logged only."""
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label} {name}: a loss is not finite")
+    runs = [(None, losses)]
+    if phases:
+        runs = [(ph, [v for v, p in zip(losses, phases) if p == ph])
+                for ph in dict.fromkeys(phases)]
+    for ph, vals in runs:
+        last = float(np.mean(vals[-10:]))
+        part = name if ph is None else f"{name} {ph}"
+        log(f"  {label} {part}: {len(vals)} iterations, loss first {vals[0]!r}, last-10 mean "
+            f"{last!r}")
+        if part not in may_rise and not last < vals[0]:
+            raise AssertionError(f"{label} {part}: the loss did not fall")
+
+
+def phase_pipeline_multichip(tmp):
+    """The pipeline entry point in processes of its own, two runs at once:
+    (a) a world of one NCCL rank at full width and (b) eight gloo ranks
+    on the card on the script's 2 x 4 mesh at its shapes. B1 and B2 are held
+    against their plain versions on (b)'s strip shape first (the blob
+    scene at 128^2, 32 x 16 tiles, strip 1 of 4). Every rank's launches per
+    stage as predicted, the replicated and broadcast tensors' digests equal
+    on every rank, stage 1's first step held against the single-process
+    step, finite losses that fall (but full width's sdf phase), (b) against
+    the JAX run's known answers. Returns (launches per run and rank, results, max abs error per
+    kernel)."""
+    from frosting_tpu_torch.parallel.sharded_train import strip_config
+    from frosting_tpu_torch.raster.preprocess import shift_projected
+
+    small = RasterConfig(width=128, height=128, tile_w=32, tile_h=16, chunk=32,
+                         max_instances=1 << 15)
+    s_cfg = strip_config(small, 4)
+    gt = synthetic.gaussian_blob_scene(n=3000, seed=0, device=DEV)
+    cam = synthetic.camera_ring(n_cams=8, radius=3.0, device=DEV)[0]
+    with torch.no_grad():
+        proj = shift_projected(preprocess(*gt, cam, small), (0, s_cfg.height), s_cfg)
+        binned = bin_gaussians(proj.rect, proj.depths, proj.valid, s_cfg)
+        fields = pack_fields(proj)
+    label = "strip 1 of 4 (128x32 of 128x128, 32x16 tiles)"
+    max_err = {"blend_forward": compare(label, fields, binned, s_cfg),
+               "blend_backward": compare_backward(label, fields, binned, s_cfg)}
+    del proj, binned, fields, gt
+    entry = ["-m", "frosting_tpu_torch.parallel.pipeline"]
+    full = ["--backend", "nccl", "--mesh", "1x1", "--width", str(MAIN_W), "--height",
+            str(PAR_H), "--tile-w", "16", "--tile-h", "16", "--chunk", "128",
+            "--max-instances", str(STAGE_MAX_INSTANCES), "--scene", "bench",
+            "--scene-gaussians", str(MAIN_N), "--jitter", str(TRAIN_JITTER),
+            "--capacity", str(PMC_FULL_CAPACITY),
+            *[f for flag, n in zip(("--gs-iters", "--sugar-iters", "--refine-iters"),
+                                   PMC_FULL_ITERS) for f in (flag, str(n))],
+            "--sdf-samples", str(PAR_SDF_SAMPLES), "--poisson-resolution",
+            str(PMC_FULL_POISSON), "--target-vertices", str(PMC_FULL_TARGET),
+            "--frosting-gaussians", str(FROSTING_N)]
+    # (run, its iterations, the losses that need not fall: at full width
+    # the 12 sdf iterations on a random cube of tiny Gaussians rose from
+    # 0.3242 to 0.3310; there stage 1's first step is held against
+    # gs_trainer.train_step, as in every run)
+    runs = {
+        "nccl_1x1_full": ([sys.executable, *entry, *full], PMC_FULL_ITERS,
+                          ("sugar_sharded sdf",)),
+        "gloo_2x4_script": ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", str(PMC_RANKS), *entry, "--backend", "gloo",
+                             "--mesh", "2x4"], (150, 100, 150), ()),
+    }
+    stamp("the multi-device pipeline: the NCCL world of one at full width and the eight "
+          "gloo ranks at the script's shapes")
+    t0 = time.perf_counter()
+    procs = {}
+    for name, (argv, _iters, _may_rise) in runs.items():
+        extra = ["--out", os.path.join(tmp, f"pmc_{name}.json"),
+                 "--report", os.path.join(tmp, f"pmc_{name}_ranks.json")]
+        procs[name] = _start_entry(argv + extra, os.path.join(tmp, f"pmc_{name}.log"))
+    codes, res, launches = {}, {}, {}
+    try:
+        for name, proc in procs.items():
+            codes[name] = _finish_entry(name, proc, os.path.join(tmp, f"pmc_{name}.log"),
+                                        t0 + PMC_TIMEOUT_S)
+            res[name] = {"command_s": time.perf_counter() - t0}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    for name, (_argv, iters, may_rise) in runs.items():
+        out = os.path.join(tmp, f"pmc_{name}.json")
+        ranks_path = os.path.join(tmp, f"pmc_{name}_ranks.json")
+        if codes[name] != 0 or not (os.path.exists(out) and os.path.exists(ranks_path)):
+            raise AssertionError(f"pipeline {name}: exit {codes[name]}")
+        with open(out) as fh:
+            result = json.load(fh)
+        with open(ranks_path) as fh:
+            rep = json.load(fh)
+        if rep["failed"]:
+            raise AssertionError(f"pipeline {name}: {rep['failed']}")
+        ranks = rep["pipeline_ranks"]
+        log(f"pipeline {name}: {res[name]['command_s']:.1f} s from the start of both runs to "
+            f"its end; {json.dumps(result)}")
+        for r in ranks:
+            want = pmc_launches(iters, r["rank"])
+            got = {k: v["launches"] for k, v in r["stages"].items()}
+            for stage, v in r["stages"].items():
+                log(f"  rank {r['rank']} {stage}: {v['seconds']:.2f} s, launches "
+                    f"{v['launches']} (predicted {want[stage]}), peak "
+                    f"{v.get('peak_gib', 0):.2f} GiB; ms a step " + ", ".join(
+                        f"{k} {x:.2f}" for k, x in v["ms_per_step"].items()) + "; collectives "
+                    + ", ".join(f"{k} {x}" for k, x in v["collectives"].items()
+                                if k.endswith("bytes")))
+            if got != want:
+                raise AssertionError(f"pipeline {name} rank {r['rank']}: launches {got}, "
+                                     f"predicted {want}")
+            if r["digests"] != ranks[0]["digests"]:
+                raise AssertionError(f"pipeline {name} rank {r['rank']}: a replicated or "
+                                     "broadcast tensor differs from rank 0's")
+        s0 = ranks[0]["stages"]
+        held = s0["gs_sharded"].get("first_step")
+        if not (held and held["ok"]):
+            raise AssertionError(f"pipeline {name}: stage 1's first step against the "
+                                 f"single-process step: {held}")
+        log(f"  pipeline {name} stage 1's first step against the single-process step: loss "
+            f"{s0['gs_sharded']['losses'][0]!r} / {held['reference_loss']!r} (rel. "
+            f"{held['loss_rel_err']:.2e}), update cosine {held['update_cosine']!r}, values off "
+            + ", ".join(f"{g} {v['fraction_off']:.2e}" for g, v in held["parity"].items()))
+        for stage in ("gs_sharded", "sugar_sharded", "refine_sharded"):
+            _check_losses(f"pipeline {name}", stage, s0[stage]["losses"],
+                          s0[stage].get("phases"), may_rise)
+        n_ranks = len(ranks)
+        rows = result["stages"]["refine_sharded"]["param_shard_rows_per_chip"]
+        if rows * n_ranks != result["stages"]["frosting_init"]["n_gaussians"]:
+            raise AssertionError(f"pipeline {name}: {rows} rows a rank")
+        if not math.isfinite(result["eval_psnr"]):
+            raise AssertionError(f"pipeline {name}: eval PSNR {result['eval_psnr']}")
+        tot = [sum(v["launches"][i] for v in s0.values()) for i in (0, 1)]
+        launches[name] = {"rank0": tot, "other_ranks": [
+            sum(v["launches"][i] for v in ranks[-1]["stages"].values()) for i in (0, 1)]}
+        res[name].update(result=result, stage_s=[
+            {k: v["seconds"] for k, v in r["stages"].items()} for r in ranks])
+    b = res["gloo_2x4_script"]["result"]
+    first = b["stages"]["gs_sharded"]["loss_first"]
+    log(f"pipeline gloo_2x4_script against PIPELINE_MC.json (JAX): stage-1 first loss "
+        f"{first!r} (JAX {PMC_JAX_LOSS_FIRST}, within {PMC_LOSS_FIRST_TOL}), eval PSNR "
+        f"{b['eval_psnr']!r} dB (required {PMC_PSNR_MIN}), rows a rank "
+        f"{b['stages']['refine_sharded']['param_shard_rows_per_chip']} (JAX {PMC_ROWS})")
+    if not (abs(first - PMC_JAX_LOSS_FIRST) <= PMC_LOSS_FIRST_TOL
+            and b["eval_psnr"] >= PMC_PSNR_MIN
+            and b["stages"]["refine_sharded"]["param_shard_rows_per_chip"] == PMC_ROWS
+            and b["mesh"] == "2x4"):
+        raise AssertionError("pipeline gloo_2x4_script: not the JAX run's known answers")
+    return launches, res, max_err
+
+
+def pmc_launch(frosting_launches, run, which, kernel):
+    return frosting_launches["pipeline_multichip"][run][which][
+        ("blend_forward", "blend_backward").index(kernel)]
+
+
 def hold_learned_shell(params, meta, cam, gt, rcfg):
     """Two learned-shell, regularised refinement steps at full width from one
     state (the offsets' gradient through the cell corners' and the normal
@@ -3267,6 +3487,7 @@ def main():
     log(json.dumps({"stages": stage_times}))
     max_err = pre.max_err
     for errs in (stage_times["depth_render_max_abs_err"], stage_times["parallel_max_abs_err"],
+                 stage_times["pipeline_multichip_max_abs_err"],
                  *stage_times["frosting"]["max_abs_err"].values(),
                  stage_times["refined_sugar"]["max_abs_err"]):
         for name, err in errs.items():
@@ -3299,6 +3520,14 @@ def main():
                 # per rank: a world of one NCCL rank; each of four gloo ranks
                 "parallel_nccl_1x1_rank": frosting_launches["parallel"]["nccl_1x1"][name],
                 "parallel_gloo_2x2_rank": frosting_launches["parallel"]["gloo_2x2"][name],
+                # the multi-device pipeline, per rank: the NCCL world of one at
+                # full width; rank 0 and each of ranks 1-7 of the gloo 2 x 4
+                "pipeline_mc_nccl_1x1_full_rank": pmc_launch(frosting_launches, "nccl_1x1_full",
+                                                             "rank0", name),
+                "pipeline_mc_gloo_2x4_rank0": pmc_launch(frosting_launches, "gloo_2x4_script",
+                                                         "rank0", name),
+                "pipeline_mc_gloo_2x4_other_ranks": pmc_launch(
+                    frosting_launches, "gloo_2x4_script", "other_ranks", name),
             },
             "max_abs_err": max_err[name],
             # the serving view; *_step: the train step's own blend inputs

@@ -19,7 +19,9 @@ transpose gives it:
   * ``ppermute``: a ring shift by ``shift`` group positions, whose backward
     is the reverse shift;
   * ``all_to_all`` (tiled, dim 0): block j goes to group position j; the
-    backward is the same exchange of the cotangents.
+    backward is the same exchange of the cotangents;
+  * ``broadcast`` (no gradient): one rank's tensors, of any shapes and
+    dtypes, on every rank of the group.
 
 Every collective is a call of ``torch.distributed`` on the mesh's groups
 (all_gather, all_reduce, all_to_all_single, batched isend / irecv), with
@@ -253,6 +255,34 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: Axis) -> torch.Tensor:
     the result holds the block each position sent here, in group order
     (``jax.lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)``)."""
     return _AllToAll.apply(x, mesh, axis)
+
+
+def broadcast(tensors, mesh: Mesh, axis: Axis = WORLD, src: int = 0):
+    """The tensors of the rank at group position ``src`` on every rank of
+    the group, with their shapes and dtypes (``tensors`` is read on that
+    rank only): one object broadcast of the layout, then one broadcast per
+    dtype of the tensors packed flat. No gradient; bytes counted under
+    ``broadcast``."""
+    group, members, i = mesh.axis(axis)
+    if len(members) == 1:
+        return [t.detach().to(mesh.device) for t in tensors]
+    layout = [[(tuple(t.shape), t.dtype) for t in tensors] if i == src else None]
+    dist.broadcast_object_list(layout, src=members[src], group=group)
+    out = [None] * len(layout[0])
+    for dtype in dict.fromkeys(d for _, d in layout[0]):
+        idx = [k for k, (_, d) in enumerate(layout[0]) if d == dtype]
+        sizes = [int(np.prod(layout[0][k][0])) for k in idx]
+        if i == src:
+            flat = torch.cat([tensors[k].detach().reshape(-1) for k in idx]).to(mesh.device)
+        else:
+            flat = torch.empty(sum(sizes), dtype=dtype, device=mesh.device)
+        mesh._count("broadcast", flat)
+        wire = mesh._to_wire(flat)
+        dist.broadcast(wire, src=members[src], group=group)
+        flat = mesh._from_wire(wire, flat)
+        for k, part in zip(idx, torch.split(flat, sizes)):
+            out[k] = part.view(layout[0][k][0])
+    return out
 
 
 def init_process_group(backend: str, rank: int, world_size: int, address: str,

@@ -54,6 +54,21 @@ def initialize(backend: Optional[str] = None, device="cuda",
     return True
 
 
+def start_world(backend: Optional[str] = None, device="cuda",
+                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """``initialize`` first; without a launcher, a world of one process on
+    a free local port (NCCL on a CUDA device, gloo on the CPU, unless
+    ``backend`` says otherwise)."""
+    if initialize(backend, device, timeout_s):
+        return
+    dev = torch.device(device)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_process_group(backend, 0, 1, f"tcp://127.0.0.1:{port}", timeout_s, device=dev)
+
+
 def local_device(device="cuda") -> torch.device:
     """This rank's device: a CUDA device without an index becomes the card
     of LOCAL_RANK, modulo the cards there are (ranks that outnumber the

@@ -158,13 +158,17 @@ def route_projected(proj_local: Projected, mesh: Mesh, rcfg: RasterConfig, strip
                     primitive_exchange: bool, exchange_cap: int, y0: int,
                     s_cfg: RasterConfig):
     """(this strip's candidates in its own frame, exchange overflow or None):
-    the tile axis's all-gather, or the primitive exchange."""
+    the tile axis's all-gather, or the primitive exchange with
+    ``exchange_cap`` slots a pair of ranks, and never more than the rows
+    this rank projected, the most it can send one strip (the same
+    candidates in the same order, without the empty slots)."""
     n_tile = mesh.shape["tile"]
     overflow = None
     if primitive_exchange:
         from frosting_tpu_torch.parallel.exchange import exchange_projected
 
-        cap = exchange_cap or max(256, proj_local.means2d.shape[0])
+        n_local = proj_local.means2d.shape[0]
+        cap = min(exchange_cap or n_local, n_local)
         proj, overflow = exchange_projected(proj_local, mesh, "tile", n_tile, strip_h, cap,
                                             rcfg)
     else:
@@ -217,7 +221,8 @@ def make_sharded_train_step(
     or this rank's share (``shard_train_state``) under ``shard_params``.
     ``primitive_exchange`` routes the projected Gaussians to the strips
     that need them (``exchange.py``; ``exchange_cap`` rows per pair of
-    ranks, by default the slice's size) in place of the all-gather.
+    ranks, at most and by default the slice's size) in place of the
+    all-gather.
     ``mark(name)``, where given, is called as each part of the step ends.
     The metrics are device tensors: the summed loss, and the maximum over
     the mesh of the instances, the overflow flag and the strip PSNR."""

@@ -77,12 +77,15 @@ def test_package_imports_without_jax():
         "import frosting_tpu_torch.parallel.sharded_sugar\n"
         "import frosting_tpu_torch.parallel.sharded_frosting\n"
         "import frosting_tpu_torch.parallel.__main__ as parallel_main\n"
+        "import frosting_tpu_torch.parallel.pipeline as parallel_pipeline\n"
+        "import frosting_tpu_torch.parallel.report\n"
         "from frosting_tpu_torch import blender_cli, cli, stages_cli\n"
         "import inspect\n"
         "from frosting_tpu_torch import metrics, pipeline\n"
         "from frosting_tpu_torch.extract import meshclean\n"
         "assert cli.build_parser().parse_args(['-s', 'x']).device == 'cuda'\n"
         "assert parallel_main.parse_args([]).device == 'cuda'\n"
+        "assert parallel_pipeline.parse_args([]).device == 'cuda'\n"
         "for fn in (pipeline.run_pipeline, metrics.get_lpips, metrics.LPIPS,\n"
         "           meshclean.nearest_distances, meshclean.remove_unsupported_vertices):\n"
         "    assert inspect.signature(fn).parameters['device'].default == 'cuda', fn\n"
