@@ -63,6 +63,17 @@ Phases (any failure raises and exits nonzero):
      stage-3 run's host QEM (below), once the ablation runs have ended,
      after paths 3-7, in a directory of their own; their launches are the
      counts' rise over their run, in which nothing else launches B1 or B2.
+     Next in that thread, the formats path (phase_formats): the scene's 8
+     views re-encoded without PIL (utils/image_encode.py) as TIFF (Deflate
+     with the predictor; LZW tiles), BMP (24-bit; 32-bit bitfields,
+     top-down) and JPEG (YCCK; 4:1:1; arithmetic-coded progressive;
+     lossless), a second COLMAP scene with the same cameras and points;
+     each view decoded and timed (host clock), the lossless views and
+     their ground truths as the loader gives them bitwise the PNG scene's,
+     the lossy ones above 30 dB PSNR, the arithmetic-coded one bitwise its
+     Huffman-coded twin; stages_cli train-gs on it at 1920x1080 (10
+     iterations, B1 and B2 launched 10 times each), and B1 and B2 held
+     against their plain versions on its model's first view.
      The same thread then writes the coloured sphere's scene (below) and
      runs the pipeline paths on it (phase_pipelines), each path's launches
      the counts' rise over it (nothing in that thread resets the counts, the
@@ -249,6 +260,7 @@ from frosting_tpu_torch.models import sugar as sugar_lib
 from frosting_tpu_torch.ops import mesh as mesh_ops
 from frosting_tpu_torch.ops import mesh_raster
 from frosting_tpu_torch.ops.ssim import l1_loss, psnr, ssim
+from frosting_tpu_torch.scene import dataset as dataset_lib
 from frosting_tpu_torch.scene import gaussians as gauss_lib
 from frosting_tpu_torch.scene import synthetic
 from frosting_tpu_torch.scene.synthetic import adversarial_blend_inputs
@@ -261,6 +273,7 @@ from frosting_tpu_torch.train import (
 )
 from frosting_tpu_torch.train import optimizer as opt_lib
 from frosting_tpu_torch.utils import image as image_io
+from frosting_tpu_torch.utils import image_encode
 from frosting_tpu_torch.utils import ply as ply_io
 from frosting_tpu_torch.utils import viewer
 from frosting_tpu_torch.utils.profiling import PartTimes
@@ -418,6 +431,21 @@ PIPE_REFINE_ITERS = 100
 UV_LAT, UV_LON = 707, 1414
 LPIPS_RTOL = 2e-4  # the card against the CPU (the JAX package's test tolerance)
 JPEG_PSNR = 30.0  # dB, a 1080p view through the Annex K tables and back
+# The formats path (phase_formats): the stages scene's 8 views re-encoded
+# without PIL (utils/image_encode.py), one format each, as a second COLMAP
+# scene with the same cameras and points, and train-gs on it (B1 and B2
+# once an iteration)
+FORMATS_GS_ITERS = 10
+FORMATS = (  # (file name, format, lossless)
+    ("img_000.tif", "TIFF, Deflate + horizontal predictor, strips of 64 rows", True),
+    ("img_001.tif", "TIFF, LZW, 256 x 256 tiles", True),
+    ("img_002.bmp", "BMP, 24-bit, bottom-up", True),
+    ("img_003.bmp", "BMP, 32-bit BI_BITFIELDS, V5 header, top-down", True),
+    ("img_004.jpg", "JPEG, YCCK (Adobe transform 2), K = 255", False),
+    ("img_005.jpg", "JPEG, YCbCr 4:1:1", False),
+    ("img_006.jpg", "JPEG, arithmetic-coded, progressive (SOF10)", False),
+    ("img_007.jpg", "JPEG, lossless (SOF3), predictor 7, RGB", True),
+)
 # stages_cli convert without colmap: the JAX package's message
 CONVERT_MESSAGE = ("convert requires the `colmap` binary on PATH (feature extraction + "
                    "mapper), which this environment does not ship. Provide a scene with "
@@ -1270,6 +1298,10 @@ def phase_stages(raw, model, preamble):
             stamp("stages 1-2 (beside the QEM)")
             launches = stages_1_2()
             torch.cuda.empty_cache()
+            stamp("the formats path: train-gs on TIFF, BMP and JPEG views (beside the QEM)")
+            pipes["formats_launches"], timings["formats"], timings[
+                "formats_max_abs_err"] = phase_formats(tmp, scene_dir)
+            torch.cuda.empty_cache()
             stamp("the coloured sphere's scene and the pipeline paths (beside the QEM)")
             pipes["scene_dir"] = write_sphere_scene(tmp)
             pipes["launches"], timings["pipelines"] = phase_pipelines(
@@ -1329,6 +1361,7 @@ def phase_stages(raw, model, preamble):
         del os.environ["FROSTING_TPU_LPIPS_WEIGHTS"]
     frosting_launches["parallel"] = pipes["parallel_launches"]
     frosting_launches["pipeline_multichip"] = pipes["pmc_launches"]
+    frosting_launches["formats"] = pipes["formats_launches"]
     return pipes["preamble"], launches, extract_launches, frosting_launches, timings
 
 
@@ -2233,6 +2266,134 @@ def phase_blender(tmp):
     return launches, results
 
 
+def _psnr8(got, src):
+    mse = float(np.mean((got.astype(np.float64) - src) ** 2))
+    return 10 * math.log10(255.0**2 / max(mse, 1e-12))
+
+
+def encode_format(i, rgb):
+    """View i of FORMATS as file bytes, written without PIL; for the
+    arithmetic-coded view also the Huffman-coded file of the same
+    coefficients (else None)."""
+    if i == 0:
+        return image_encode.tiff(rgb, 2, "deflate", predictor=True, rows_per_strip=64), None
+    if i == 1:
+        return image_encode.tiff(rgb, 2, "lzw", tile=(256, 256)), None
+    if i == 2:
+        return image_encode.bmp(rgb, 24), None
+    if i == 3:
+        return image_encode.bmp(rgb, 32, top_down=True, header=124,
+                                masks=(0xFF0000, 0xFF00, 0xFF, 0)), None
+    if i == 4:  # C, M, Y as Pillow returns them: the view; K = 255 composites as opaque
+        cmyk = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
+        return image_encode.jpeg(cmyk, "ycck"), None
+    if i == 5:
+        return image_encode.jpeg(rgb, "ycc", ((4, 1), (1, 1), (1, 1))), None
+    if i == 6:
+        huffman = image_encode.jpeg(rgb)
+        return image_encode.jpeg_arithmetic(huffman, progressive=True), huffman
+    return image_encode.jpeg_lossless(rgb, 7), None
+
+
+def phase_formats(tmp, scene_dir):
+    """The formats path: the stages scene's 8 PNG views re-encoded, one
+    format each (FORMATS), as a second COLMAP scene with the same cameras
+    and points; each view decoded (host clock) and held to its source
+    (lossless views bitwise, lossy ones above JPEG_PSNR, the
+    arithmetic-coded one bitwise equal to its Huffman-coded twin); every
+    lossless view's ground truth, as the loader gives it, bitwise the PNG
+    scene's; then stages_cli train-gs on it in process at 1920x1080
+    (FORMATS_GS_ITERS iterations; B1 and B2 once an iteration, the counts'
+    rise over the command: nothing else launches them beside stage 3's
+    QEM), and B1 and B2 held against their plain versions on its model's
+    first view. Returns (launches, results, max abs errors)."""
+    fmt_dir, out = os.path.join(tmp, "formats_scene"), os.path.join(tmp, "formats_out")
+    os.makedirs(os.path.join(fmt_dir, "images"))
+    os.makedirs(out)
+    shutil.copytree(os.path.join(scene_dir, "sparse"), os.path.join(fmt_dir, "sparse"))
+    images_bin = os.path.join(fmt_dir, "sparse", "0", "images.bin")
+    with open(images_bin, "rb") as fh:
+        poses = fh.read()
+    res = {"bytes": {}, "encode_s": {}, "decode_ms": {}, "psnr": {}}
+    for i, (name, what, lossless) in enumerate(FORMATS):
+        png = f"img_{i:03d}.png"
+        poses = poses.replace(png.encode() + b"\x00", name.encode() + b"\x00")
+        src, _mode = image_io.read_image(os.path.join(scene_dir, "images", png))
+        t0 = time.perf_counter()
+        body, twin = encode_format(i, src)
+        res["encode_s"][name] = time.perf_counter() - t0
+        path = os.path.join(fmt_dir, "images", name)
+        with open(path, "wb") as fh:
+            fh.write(body)
+        got, mode = image_io.read_image(path)
+        res["decode_ms"][name] = host_ms(lambda: image_io.read_image(path), 3)
+        res["bytes"][name] = len(body)
+        res["psnr"][name] = _psnr8(got[..., :3], src)
+        log(f"formats: {name} ({what}): {len(body)} bytes, encoded in "
+            f"{res['encode_s'][name]:.2f} s, decoded in {res['decode_ms'][name]:.1f} ms "
+            f"(host clock, median of 3), {mode} {got.shape}, PSNR against its source "
+            f"{res['psnr'][name]:.2f} dB")
+        if lossless:
+            ok = mode == "RGB" and np.array_equal(got, src)
+        elif mode == "CMYK":
+            ok = bool((got[..., 3] == 255).all()) and res["psnr"][name] >= JPEG_PSNR
+        else:
+            ok = mode == "RGB" and res["psnr"][name] >= JPEG_PSNR
+        if twin is not None:
+            ok = ok and np.array_equal(got, image_io.decode(twin)[0])
+        if not ok:
+            raise AssertionError(f"formats: {name} ({what}) is not its source")
+    with open(images_bin, "wb") as fh:
+        fh.write(poses)
+
+    png_scene = dataset_lib.load_colmap_scene(scene_dir, eval_split=False, device=DEV)
+    t0 = time.perf_counter()
+    fmt_scene = dataset_lib.load_colmap_scene(fmt_dir, eval_split=False, device=DEV)
+    gts = {c.image_name: c.image() for c in fmt_scene.train_cameras}
+    res["scene_load_ms"] = (time.perf_counter() - t0) * 1e3
+    for (name, what, lossless), cam in zip(FORMATS, png_scene.train_cameras):
+        want = cam.image()
+        got = gts[name]
+        if lossless and not (got.dtype == want.dtype and np.array_equal(got, want)):
+            raise AssertionError(f"formats: {name}'s ground truth differs from the PNG's")
+        if not lossless and not (got.shape == want.shape and np.isfinite(got).all()):
+            raise AssertionError(f"formats: {name}'s ground truth is not a {want.shape} image")
+    del png_scene, fmt_scene, gts
+    log(f"formats: the scene's 8 ground truths loaded in {res['scene_load_ms']:.0f} ms; the "
+        "lossless views' bitwise the PNG scene's")
+
+    common = ["-s", fmt_dir, "-o", out, "--max-instances", str(STAGE_MAX_INSTANCES),
+              "--device", DEV]
+    before = (blend_cuda.blend_forward.launches, blend_cuda.blend_backward.launches)
+    t0 = time.perf_counter()
+    hist = stages_cli.main(["train-gs", *common, "--iterations", str(FORMATS_GS_ITERS),
+                            "--capacity", str(TRAIN_CAPACITY)])
+    torch.cuda.synchronize()
+    res["train_gs_s"] = time.perf_counter() - t0
+    launches = {"blend_forward": blend_cuda.blend_forward.launches - before[0],
+                "blend_backward": blend_cuda.blend_backward.launches - before[1]}
+    log(f"formats: train-gs {res['train_gs_s']:.1f} s ({FORMATS_GS_ITERS} iterations, the "
+        f"scene's decode included); "
+        + "; ".join(f"it {h['iter']} loss {h['loss']:.4f}" for h in hist)
+        + f"; launches {launches} (predicted {FORMATS_GS_ITERS} each)")
+    if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
+        raise AssertionError(f"formats: train-gs, a non-finite loss or an overflow: {hist}")
+    if launches != {"blend_forward": FORMATS_GS_ITERS, "blend_backward": FORMATS_GS_ITERS}:
+        raise AssertionError(f"formats: train-gs launched {launches}")
+    res["launches"] = launches
+
+    args = stages_cli.build_parser().parse_args(["render", *common])
+    _scene, scams, _gt, srcfg = stages_cli._load_scene(args)
+    live = gauss_lib.activate(stages_cli.load_live_gaussians(
+        os.path.join(out, "gs.ply"), device=DEV))
+    with torch.inference_mode():
+        fields, binned = blend_inputs(live, scams[0], srcfg)
+        errs = {"blend_forward": compare("formats view 0", fields, binned, srcfg),
+                "blend_backward": compare_backward("formats view 0", fields, binned, srcfg)}
+    del live, fields, binned, _scene, _gt
+    return launches, res, errs
+
+
 def write_sphere_scene(tmp):
     """The coloured sphere (sphere_raw(MAIN_N)) rendered by B1 from the 8
     stage views as a COLMAP scene: stages 4-6 and the pipeline paths run on
@@ -2298,147 +2459,6 @@ def rise(before):
 def reset_counts():
     blend_cuda.blend_forward.launches = 0
     blend_cuda.blend_backward.launches = 0
-
-
-# ITU T.81 Annex K: the example quantisation tables (K.1, K.2; natural
-# order) and the typical Huffman tables (K.3-K.6: 16 code counts, symbols)
-JPEG_QUANT = (
-    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
-    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32),
-)
-JPEG_HUFF = {
-    "dc0": ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
-    "dc1": ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
-    "ac0": ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], [
-        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
-        0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1,
-        0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16, 0x17, 0x18,
-        0x19, 0x1A, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
-        0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57,
-        0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
-        0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8A, 0x92,
-        0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
-        0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
-        0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8,
-        0xD9, 0xDA, 0xE1, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2,
-        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]),
-    "ac1": ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
-        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
-        0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09,
-        0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
-        0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38,
-        0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56,
-        0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
-        0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
-        0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA,
-        0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6,
-        0xD7, 0xD8, 0xD9, 0xDA, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2,
-        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]),
-}
-
-
-def _huff_codes(bits, vals):
-    """[256, 2] (code, length) per symbol of a canonical Huffman table."""
-    codes, code, k = np.zeros((256, 2), np.int64), 0, 0
-    for length in range(1, 17):
-        for _ in range(bits[length - 1]):
-            codes[vals[k]] = (code, length)
-            code, k = code + 1, k + 1
-        code <<= 1
-    return codes
-
-
-def encode_jpeg(rgb):
-    """A baseline JPEG (JFIF, YCbCr 4:2:0, the Annex K tables) of rgb
-    [H, W, 3] uint8 in numpy: float DCT, rounded quantisation, and one
-    interleaved Huffman-coded scan built as one array of bit fields, sorted
-    into stream order (the card's machine has no JPEG encoder)."""
-    zigzag = image_io._NATURAL  # zig-zag position -> natural position
-    h, w, _ = rgb.shape
-    x = rgb.astype(np.float64)
-    ycc = np.stack([x @ [0.299, 0.587, 0.114], x @ [-0.168736, -0.331264, 0.5] + 128,
-                    x @ [0.5, -0.418688, -0.081312] + 128], -1)
-    ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
-    ycc = np.pad(ycc, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
-    chroma = ycc[..., 1:].reshape(ph // 2, 2, pw // 2, 2, 2).mean(axis=(1, 3))
-    n = np.arange(8)
-    dct = np.sqrt(np.where(n == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
-        (2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
-    my, mx = ph // 16, pw // 16
-
-    def blocks(plane, q, per):  # [my, mx, per * per, 64] quantised, zig-zag order
-        b = plane.reshape(my, per, 8, mx, per, 8).transpose(0, 3, 1, 4, 2, 5) - 128.0
-        coef = (dct @ b @ dct.T).reshape(my, mx, per * per, 64)
-        return np.round(coef / q)[..., zigzag].astype(np.int64)
-
-    # the blocks in stream order: per MCU four Y blocks, then Cb and Cr
-    stream = np.concatenate([blocks(ycc[..., 0], JPEG_QUANT[0], 2),
-                             blocks(chroma[..., 0], JPEG_QUANT[1], 1),
-                             blocks(chroma[..., 1], JPEG_QUANT[1], 1)], axis=2).reshape(-1, 64)
-    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
-    table = np.minimum(comp, 1)
-    dc = stream[:, 0].copy()
-    for c in range(3):
-        dc[comp == c] = np.diff(stream[comp == c, 0], prepend=0)
-
-    def size(v):  # magnitude category and extra bits
-        s = np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
-        return s, np.where(v < 0, v + (1 << s) - 1, v)
-
-    codes = {k: _huff_codes(*v) for k, v in JPEG_HUFF.items()}
-    dc_codes = np.stack([codes["dc0"], codes["dc1"]])
-    ac_codes = np.stack([codes["ac0"], codes["ac1"]])
-    nblk = len(stream)
-    fields = []  # (stream key, code, code length, extra bits, extra length)
-    s, extra = size(dc)
-    c = dc_codes[table, s]
-    fields.append((np.arange(nblk) * 1024, c[:, 0], c[:, 1], extra, s))
-    blk, k = np.nonzero(stream[:, 1:])
-    k = k + 1
-    prev = np.where(np.r_[True, blk[1:] != blk[:-1]], 0, np.r_[0, k[:-1]])
-    run = k - prev - 1
-    for j in range(3):  # up to three ZRLs (16 zeros) before a coefficient
-        sel = run >= 16 * (j + 1)
-        c = ac_codes[table[blk[sel]], 0xF0]
-        fields.append((blk[sel] * 1024 + k[sel] * 4 + j, c[:, 0], c[:, 1],
-                       np.zeros(sel.sum(), np.int64), np.zeros(sel.sum(), np.int64)))
-    s, extra = size(stream[blk, k])
-    c = ac_codes[table[blk], (run % 16) << 4 | s]
-    fields.append((blk * 1024 + k * 4 + 3, c[:, 0], c[:, 1], extra, s))
-    last = np.zeros(nblk, np.int64)
-    last[blk] = k
-    eob = np.nonzero(last < 63)[0]
-    c = ac_codes[table[eob], 0x00]
-    fields.append((eob * 1024 + 1023, c[:, 0], c[:, 1], np.zeros(len(eob), np.int64),
-                   np.zeros(len(eob), np.int64)))
-    key, code, clen, ext, elen = (np.concatenate(f) for f in zip(*fields))
-    order = np.argsort(key, kind="stable")
-    value = (code[order] << elen[order]) | (ext[order] & ((1 << elen[order]) - 1))
-    length = clen[order] + elen[order]
-    total = int(length.sum())
-    pos = np.arange(total) - np.repeat(np.cumsum(length) - length, length)
-    bits = (np.repeat(value, length) >> (np.repeat(length, length) - 1 - pos)) & 1
-    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
-    data = np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
-
-    def seg(marker, body):
-        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
-
-    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for t, q in enumerate(JPEG_QUANT):
-        out += seg(0xDB, bytes([t]) + bytes(q[zigzag].astype(np.uint8)))
-    out += seg(0xC0, bytes([8]) + h.to_bytes(2, "big") + w.to_bytes(2, "big")
-               + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
-    for cls, name in ((0, "dc0"), (0, "dc1"), (1, "ac0"), (1, "ac1")):
-        nbits, vals = JPEG_HUFF[name]
-        out += seg(0xC4, bytes([cls << 4 | int(name[-1])]) + bytes(nbits) + bytes(vals))
-    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
-    return out + data + b"\xff\xd9"
 
 
 def _read_back(out_dir, n_gaussians, n_verts, n_faces):
@@ -2671,15 +2691,14 @@ def phase_pipelines(tmp, scene_dir, weights):
     # (6) a 1080p baseline JPEG: the held-out view through the Annex K tables
     src, _mode = image_io.read_image(scene.test_cameras[0].image_path)
     t0 = time.perf_counter()
-    data = encode_jpeg(src)
+    data = image_encode.jpeg(src)
     enc_s = time.perf_counter() - t0
     jpg = os.path.join(tmp, "view.jpg")
     with open(jpg, "wb") as fh:
         fh.write(data)
     got, mode = image_io.read_image(jpg)
     decode_ms = host_ms(lambda: image_io.read_image(jpg), 5)
-    mse = float(np.mean((got.astype(np.float64) - src) ** 2))
-    jpeg_psnr = 10 * math.log10(255.0**2 / max(mse, 1e-12))
+    jpeg_psnr = _psnr8(got, src)
     res["jpeg"] = {"bytes": len(data), "decode_ms": decode_ms, "encode_s": enc_s,
                    "psnr": jpeg_psnr}
     log(f"JPEG: the held-out view as a {len(data)}-byte baseline 4:2:0 JPEG (numpy encoder, "
@@ -3486,7 +3505,8 @@ def main():
         raw, model, phase_preamble)
     log(json.dumps({"stages": stage_times}))
     max_err = pre.max_err
-    for errs in (stage_times["depth_render_max_abs_err"], stage_times["parallel_max_abs_err"],
+    for errs in (stage_times["depth_render_max_abs_err"], stage_times["formats_max_abs_err"],
+                 stage_times["parallel_max_abs_err"],
                  stage_times["pipeline_multichip_max_abs_err"],
                  *stage_times["frosting"]["max_abs_err"].values(),
                  stage_times["refined_sugar"]["max_abs_err"]):
@@ -3506,6 +3526,7 @@ def main():
                 "training": pre.launches[name],
                 "bench": pre.bench_launches[name],
                 "stages": stage_launches[name],
+                "stages_formats": frosting_launches["formats"][name],
                 "extract_shell": extract_launches[name],
                 "frosting": frosting_launches["frosting"][name],
                 "frosting_culled": frosting_launches["frosting_culled"][name],

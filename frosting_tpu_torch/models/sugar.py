@@ -27,6 +27,24 @@ def smallest_axis(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     return torch.gather(R, 2, idx[:, None, None].expand(-1, 3, 1))[..., 0]
 
 
+def fused_dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b, -1) over a last axis of 3, rounded as XLA's compiled
+    reduction rounds it: fma(a2, b2, fma(a1, b1, a0 * b0)), each step
+    rounded once to float32 (a float32 product is exact in float64).
+
+    The sign of this sum weighs the neighbour normals in
+    ``better_normal_loss``. Near isotropy it is a rounding: Adam's first
+    steps move every quaternion component by the same +-lr, so normals of
+    different Gaussians' axes are orthogonal to a few ulps, and a plain
+    sum's sign differs from the JAX package's jitted step's in ~2% of the
+    pairs."""
+    a = a.to(torch.float64)
+    b = b.to(torch.float64)
+    r = (a[..., 0] * b[..., 0]).to(torch.float32)
+    r = (a[..., 1] * b[..., 1] + r.to(torch.float64)).to(torch.float32)
+    return (a[..., 2] * b[..., 2] + r.to(torch.float64)).to(torch.float32)
+
+
 def entropy_loss(opacities: torch.Tensor, visible: torch.Tensor) -> torch.Tensor:
     """Binary entropy of visible opacities (coarse_density.py:542-555),
     probabilities clamped away from {0, 1} (see the JAX version; callers
@@ -245,10 +263,8 @@ def better_normal_loss(
     normals = smallest_axis(scales, quats)
     closest_normals = normals[inp.knn_idx]  # [S, K, 3]
     sample_normals = normals[inp.gaussian_idx]  # [S, 3]
-    sign = torch.sign(
-        torch.sum(closest_normals * sample_normals[:, None], -1, keepdim=True).detach()
-    )
-    closest_normals = closest_normals * sign
+    sign = torch.sign(fused_dot3(closest_normals.detach(), sample_normals[:, None].detach()))
+    closest_normals = closest_normals * sign[..., None]
     closest_min_scaling = torch.amin(scales, -1)[inp.knn_idx].detach()
     w = torch.abs(
         torch.sum(

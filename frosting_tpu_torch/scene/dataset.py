@@ -34,8 +34,12 @@ class CameraInfo:
     _image: Optional[np.ndarray] = None
 
     def image(self, bg: Tuple[float, float, float] = (1.0, 1.0, 1.0)):
-        """[3, H, W]: float32, or float64 for RGBA files, which are
-        composited over bg in float64 as the JAX loader does."""
+        """[3, H, W]: float32, or float64 for four-channel files, which are
+        composited over bg in float64 as the JAX loader does. Every mode
+        flows as ``np.asarray(im).astype(np.float32) / 255.0`` makes it flow
+        there, quirks kept for parity: a CMYK view composites its K channel
+        as if it were alpha, a 16-bit ("I;16") view reaches 257, a palette
+        view is its indices."""
         if self._image is None:
             arr, mode = image_io.read_image(self.image_path)
             if (arr.shape[1], arr.shape[0]) != (self.width, self.height):

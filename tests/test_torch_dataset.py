@@ -1,10 +1,13 @@
 """The port's scene loaders (frosting_tpu_torch.scene.dataset) against the
-JAX package's: a COLMAP scene with PNG (RGB, RGBA, grey, palette) and JPEG
-(4:2:0, 4:4:4, grey) images, with and without the eval split and at
-resolution scale 2 (so the resize runs); a NeRF-synthetic scene of RGBA
-PNGs; a 3DGS cameras.json. Every camera field agrees at rtol 1e-6; names,
-splits, extents and points are equal; the ground-truth images are equal
-bit for bit, dtype included (RGBA composites in float64, as in JAX)."""
+JAX package's: a COLMAP scene with PNG (RGB, RGBA, grey, palette), JPEG
+(4:2:0, 4:4:4, grey, CMYK), 16-bit grey TIFF and BMP images, with and
+without the eval split and at resolution scale 2 (so the resize runs); a
+NeRF-synthetic scene of RGBA PNGs; a 3DGS cameras.json. Every camera field
+agrees at rtol 1e-6; names, splits, extents and points are equal; the
+ground-truth images are equal bit for bit, dtype included (RGBA composites
+in float64, as in JAX). The JAX loader's quirks hold in the port too: a
+CMYK view composites its K channel as if it were alpha (in float64), and a
+16-bit view divided by 255 reaches 257."""
 
 import dataclasses
 import json
@@ -24,7 +27,8 @@ IMAGES = [
     ("img_002.jpg", "RGB", {"quality": 90}), ("img_003.jpg", "L", {}),
     ("img_004.png", "L", {}), ("img_005.png", "RGBA", {}),
     ("img_006.jpg", "RGB", {"subsampling": 0}), ("img_007.png", "P", {}),
-    ("img_008.png", "RGB", {}),
+    ("img_008.png", "RGB", {}), ("img_009.tif", "I;16", {"compression": "tiff_lzw"}),
+    ("img_010.jpg", "CMYK", {"quality": 90}), ("img_011.bmp", "RGB", {}),
 ]
 
 
@@ -36,6 +40,10 @@ def _picture(rng, mode, w, h):
         return Image.fromarray(a[..., 0])
     if mode == "P":
         return Image.fromarray(a[..., :3]).quantize(48)
+    if mode == "I;16":
+        return Image.fromarray(a[..., 0].astype(np.uint16) * 257)
+    if mode == "CMYK":
+        return Image.frombytes("CMYK", (w, h), a.tobytes())
     return Image.fromarray(a[..., :len(mode)])
 
 
@@ -107,8 +115,10 @@ def test_load_colmap_scene_matches_jax(colmap_scene, scale, eval_split):
     assert scene.train_cameras[0].image().shape == (3, H // scale, W // scale)
     # RGBA composites in float64, the rest is float32, as the JAX loader gives
     dtypes = {c.image_name: c.image().dtype for c in scene.train_cameras}
-    assert dtypes["img_001.png"] == np.float64
-    assert dtypes["img_003.jpg"] == np.float32
+    assert dtypes["img_001.png"] == dtypes["img_010.jpg"] == np.float64
+    assert dtypes["img_003.jpg"] == dtypes["img_009.tif"] == np.float32
+    views = {c.image_name: c for c in scene.train_cameras}
+    assert views["img_009.tif"].image().max() > 1.0  # 16-bit values over 255
 
 
 def test_load_blender_scene_matches_jax(tmp_path):

@@ -2,7 +2,8 @@
 PIL itself (Pillow 12.1.0 on libjpeg-turbo): PNG (interlaced or not, 1 to
 16 bits) and baseline and progressive JPEG decoding and the default
 resize, bit for bit, on images made in the test; and the cases it
-refuses.
+refuses. TIFF, BMP and the other JPEG variants are in
+tests/test_torch_image_formats.py.
 
 The JPEG files are PIL's own (libjpeg-turbo's encoder); the PNGs are
 written here with every row filter (None, Sub, Up, Average, Paeth), every
@@ -193,27 +194,62 @@ def _patched_sof(data, marker=None, precision=None):
     return bytes(out)
 
 
-@pytest.mark.parametrize(
-    "make,error",
-    [
-        (lambda: _unrefined_progressive(), NotImplementedError),
-        (lambda: _patched_sof(_jpeg(), marker=0xC9), NotImplementedError),  # arithmetic
-        (lambda: _patched_sof(_jpeg(), precision=12), NotImplementedError),
-        (lambda: _jpeg(mode="CMYK"), NotImplementedError),
-        (lambda: _png(np.zeros((4, 4, 2), np.uint8), 4, 8), ValueError),  # LA
-        (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=2), ValueError),
-        (lambda: _png(np.zeros((4, 1, 3), np.uint8), 2, 1), NotImplementedError),
-        (lambda: b"GIF89a", ValueError),
-    ],
-    ids=["progressive", "arithmetic", "12-bit", "cmyk", "LA", "adam7", "1-bit", "gif"],
-)
-def test_refused_files_raise(make, error):
-    """progressive: a progressive file whose last scans (the final
-    refinement of the low AC coefficients) are cut, which libjpeg would
-    smooth; adam7: an interlace method that is not Adam7; 1-bit: 1-bit
-    RGB, which PNG does not define."""
+def _pil_file(fmt):
+    buf = io.BytesIO()
+    Image.fromarray(_smooth(np.random.default_rng(2), 24, 24, 3)).save(buf, fmt)
+    return buf.getvalue()
+
+
+# (make the file, the port's exception, whether Pillow refuses it too)
+REFUSED = {
+    "12-bit": (lambda: _patched_sof(_jpeg(), precision=12), NotImplementedError, True),
+    "hierarchical": (lambda: _patched_sof(_jpeg(), marker=0xC5), NotImplementedError, True),
+    "LA": (lambda: _png(np.zeros((4, 4, 2), np.uint8), 4, 8), ValueError, False),
+    "adam7": (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=2), ValueError, True),
+    "1-bit": (lambda: _png(np.zeros((4, 1, 3), np.uint8), 2, 1), NotImplementedError, True),
+    "gif": (lambda: _pil_file("GIF"), ValueError, False),
+    "webp": (lambda: _pil_file("WEBP"), ValueError, False),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_refused_files_raise(case):
+    """12-bit: Pillow opens 8-bit JPEGs only; hierarchical: libjpeg refuses
+    SOF5-7; adam7: an interlace method that is not Adam7; 1-bit: 1-bit RGB,
+    which PNG does not define. Pillow refuses each of these too. Pillow
+    reads the others: LA, grey + alpha, which no trainer takes; gif and
+    webp, PIL's own files, containers still to be ported (ROADMAP section
+    A)."""
+    make, error, pil_refuses = REFUSED[case]
+    data = make()
     with pytest.raises(error):
-        image_io.decode(make())
+        image_io.decode(data)
+    if pil_refuses:
+        with pytest.raises(Exception):
+            _pil(data)
+    else:
+        _pil(data)
+
+
+def _arithmetic():
+    """PIL's baseline file transcoded to arithmetic coding (SOF9) by the
+    port's writer: the same coefficients."""
+    from frosting_tpu_torch.utils import image_encode
+
+    return image_encode.jpeg_arithmetic(_jpeg())
+
+
+@pytest.mark.parametrize("make", [_unrefined_progressive, _arithmetic,
+                                  lambda: _jpeg(mode="CMYK")],
+                         ids=["progressive", "arithmetic", "cmyk"])
+def test_formerly_refused_files_match_pil(make):
+    """Files the port refused before it read them: a progressive file whose
+    last scans are cut (libjpeg smooths its blocks), an arithmetic-coded
+    file, PIL's CMYK file (Adobe's inverted CMYK)."""
+    data = make()
+    got = _assert_like_pil(data)
+    if make is _arithmetic:
+        np.testing.assert_array_equal(got, image_io.decode(_jpeg())[0])
 
 
 # progressive JPEG: (PIL mode, subsampling, extra save options)
@@ -314,9 +350,19 @@ def test_resize_of_1_bit_matches_pil():
         np.testing.assert_array_equal(got, want)
 
 
-def test_resize_of_16_bit_grey_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        image_io.resize(np.zeros((8, 8), np.uint16), "I;16", (4, 4))
+@pytest.mark.parametrize("mode", ["I;16", "I;16B"])
+def test_resize_of_16_bit_grey_matches_pil(mode):
+    """Image.resize of 16-bit grey: BICUBIC in float64 with Pillow's byte
+    clipping (values past 65535 keep their low byte under a high byte of
+    255), "I;16B" read as little-endian words, as Pillow does."""
+    a = np.random.default_rng(9).integers(0, 65536, (48, 64)).astype(np.uint16)
+    img = Image.fromarray(a) if mode == "I;16" else Image.frombytes(
+        "I;16B", (64, 48), a.astype(">u2").tobytes())
+    for size in ((32, 24), (31, 23), (100, 70), (64, 30)):
+        want = np.asarray(img.resize(size))
+        got = image_io.resize(np.asarray(img), mode, size)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_image_size_reads_the_header(tmp_path):

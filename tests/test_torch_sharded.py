@@ -70,10 +70,10 @@ from tests.torch_sharded_worker import (
     EXTENT,
     PIPE_CAMS,
     PIPE_ENTROPY_FRACTION,
+    PIPE_FORCED,
     PIPE_ITERS,
     PIPE_KNN_EVERY,
     PIPE_STAGE2_RUNS,
-    PIPE_TIE_BREAK,
     RASTER,
     SDF_SAMPLES,
 )
@@ -147,9 +147,8 @@ def _inputs():
     for name, b in zip(("b1", "b2", "b5"), schedule):
         inp[f"pipe_{name}"] = np.asarray(b)
     # stage 2 from the init with the scene's anisotropic scales, rotations
-    # and opacities, as a trained 3DGS state has them: from an isotropic
-    # init (or one within 1e-4 of it) the two packages' sdf steps part
-    # (ROADMAP section C)
+    # and opacities, as a trained 3DGS state has them, and from the
+    # isotropic init itself
     live = inp["params_mask"] > 0.5
     n_live = int(live.sum())
     for f in dataclasses.fields(jstate.params):
@@ -158,11 +157,8 @@ def _inputs():
     inp["p2_params_quats_raw"][live] = inp["scene_quats"][:n_live]
     opac = inp["scene_opac"][:n_live]
     inp["p2_params_opacities_raw"][live] = np.log(opac / (1.0 - opac))
-    # and from the isotropic init itself, its three equal log-scales set
-    # PIPE_TIE_BREAK apart
     for f in dataclasses.fields(jstate.params):
         inp[f"p2i_params_{f.name}"] = inp[f"params_{f.name}"].copy()
-    inp["p2i_params_scales_log"][live] += np.float32([0.0, 1.0, 2.0]) * np.float32(PIPE_TIE_BREAK)
     pts7, cols7 = jax_synthetic.degraded_init(gt, keep=0.7, jitter=0.05)
     jstate7, _ = jax_trainer.init_state(pts7, cols7, EXTENT,
                                         jax_trainer.GSTrainConfig(capacity=512))
@@ -299,7 +295,10 @@ def _jax_references(inp, jstates, tmp):
         """Stage 2 from the parameters ``run``_params_, on the KNN of each
         of the port's refreshes (the artifact both sides take: JAX's own
         search is approximate, and an exact one on either side's parameters
-        may differ where the two sides' parameters do)."""
+        may differ where the two sides' parameters do). A run of
+        PIPE_FORCED starts each step from the port's parameters before it;
+        the Adam moments stay JAX's own, made from its gradients at the
+        port's parameters."""
         from tests.torch_sharded_worker import wait_for
 
         p = JaxGaussianParams(**{f.name: jnp.asarray(inp[f"{run}_params_{f.name}"])
@@ -308,6 +307,9 @@ def _jax_references(inp, jstates, tmp):
         for it, (phase, sel) in enumerate(zip(_pipe_phases(), inp["pipe_b2"])):
             if it % PIPE_KNN_EVERY == 0:
                 knn = wait_for(str(tmp / f"{run}_knn{it}.npz"), timeout=300.0)[f"it{it}"]
+            if run in PIPE_FORCED and it > 0:
+                port = wait_for(str(tmp / f"{run}_params{it}.npz"), timeout=300.0)
+                p = JaxGaussianParams(**{k: jnp.asarray(v) for k, v in port.items()})
             key, sub_key = jax.random.split(key)
             p, o, m = sugar_steps[phase](host(p), host(o), *batch(sel), jnp.asarray(knn),
                                          sub_key)
@@ -710,9 +712,9 @@ def test_pipeline_stage_matches_jax(runs, stage):
     """Stage 1 (the replicated 3DGS step from the script's degraded init)
     and stage 2 (coarse SuGaR, each rank on JAX's own sdf draws, both sides
     on the KNN of the port's refreshes) from that init with the scene's
-    anisotropic scales (p2) and from the isotropic init with its equal
-    axes set PIPE_TIE_BREAK apart (p2i): losses, parameters, every rank's
-    copy bitwise equal."""
+    anisotropic scales (p2) and from the isotropic init itself (p2i, each
+    of JAX's steps from the port's parameters before it): losses,
+    parameters, every rank's copy bitwise equal."""
     _inp, ref, results = runs
     r = results[0]
     np.testing.assert_allclose(r[f"{stage}_loss"], ref[f"{stage}_loss"], rtol=1e-5)

@@ -47,11 +47,13 @@ SDF_SAMPLES = 4096
 # 32^3 with a 400-vertex target; 1024 Frosting Gaussians
 PIPE_CAMS, PIPE_ITERS, PIPE_KNN_EVERY, PIPE_ENTROPY_FRACTION = 4, 3, 2, 0.4
 # stage 2 runs from two inputs: the init with the scene's anisotropic
-# scales (p2) and the isotropic init with its three equal log-scales set
-# PIPE_TIE_BREAK apart (p2i). Both packages agree there at 1e-2; at 1e-4,
-# 1e-6 or 0 the first sdf step's loss already differs (ROADMAP section C)
+# scales (p2) and the isotropic init itself (p2i). From the isotropic init
+# the signs that weigh neighbour normals in the better-normal loss are
+# roundings after the first sdf step (ROADMAP section C), so JAX's steps of
+# the PIPE_FORCED runs each start from the port's parameters before that
+# step, which rank 0 writes
 PIPE_STAGE2_RUNS = ("p2", "p2i")
-PIPE_TIE_BREAK = 1e-2
+PIPE_FORCED = ("p2i",)
 PIPE_ARGS = ["--device", "cpu", "--mesh", "2x2", "--width", "64", "--height", "64",
              "--max-instances", "4096", "--scene-gaussians", "300", "--capacity", "512",
              "--gs-iters", "3", "--sugar-iters", "3", "--refine-iters", "3",
@@ -229,9 +231,33 @@ def stage2(inp, tmp, mesh, rcfg, cams, gts, draws, run, out):
                        os.path.join(tmp, f"{run}_knn{it}.npz"))
         return knn[it]
 
-    params, losses, phases, _ = pipeline.run_stage2(
-        mesh, params, cams, gts, rcfg, inp["pipe_b2"], EXTENT, SDF_SAMPLES, 8,
-        PIPE_ENTROPY_FRACTION, PIPE_KNN_EVERY, draws=draws, knn_fn=knn_fn)
+    # a PIPE_FORCED run: rank 0 writes the parameters before each step, the
+    # steps made by the pipeline's own factory, wrapped for the run
+    steps_made = ssg.make_sharded_sugar_step
+    calls = iter(range(len(inp["pipe_b2"])))
+
+    def saving_step_factory(*args, **kw):
+        step = steps_made(*args, **kw)
+
+        def saving_step(p, *step_args, **step_kw):
+            it = next(calls)
+            if dist.get_rank() == 0:
+                np.savez(os.path.join(tmp, f"{run}_params.tmp.npz"),
+                         **{f.name: getattr(p, f.name).numpy() for f in dataclasses.fields(p)})
+                os.replace(os.path.join(tmp, f"{run}_params.tmp.npz"),
+                           os.path.join(tmp, f"{run}_params{it}.npz"))
+            return step(p, *step_args, **step_kw)
+
+        return saving_step
+
+    if run in PIPE_FORCED:
+        ssg.make_sharded_sugar_step = saving_step_factory
+    try:
+        params, losses, phases, _ = pipeline.run_stage2(
+            mesh, params, cams, gts, rcfg, inp["pipe_b2"], EXTENT, SDF_SAMPLES, 8,
+            PIPE_ENTROPY_FRACTION, PIPE_KNN_EVERY, draws=draws, knn_fn=knn_fn)
+    finally:
+        ssg.make_sharded_sugar_step = steps_made
     out[f"{run}_loss"] = np.asarray(losses, np.float32)
     out[f"{run}_phases"] = np.asarray(phases)
     for f in dataclasses.fields(params):
