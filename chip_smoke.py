@@ -73,7 +73,13 @@ Phases (any failure raises and exits nonzero):
      the lossy ones above 30 dB PSNR, the arithmetic-coded one bitwise its
      Huffman-coded twin; stages_cli train-gs on it at 1920x1080 (10
      iterations, B1 and B2 launched 10 times each), and B1 and B2 held
-     against their plain versions on its model's first view.
+     against their plain versions on its model's first view. Then the
+     second formats pass, the same on the views as WebP (VP8L; VP8 with the
+     normal filter in one token partition and with the simple filter in
+     four; VP8X with VP8 and a VP8L-compressed, gradient-filtered ALPH;
+     VP8L with alpha; an animation's first frame at an offset) and GIF (a
+     palette's indices; interlaced grey), lossless views and alpha planes
+     bitwise what was written, the GIFs' indices the writer's.
      The same thread then writes the coloured sphere's scene (below) and
      runs the pipeline paths on it (phase_pipelines), each path's launches
      the counts' rise over it (nothing in that thread resets the counts, the
@@ -445,6 +451,20 @@ FORMATS = (  # (file name, format, lossless)
     ("img_005.jpg", "JPEG, YCbCr 4:1:1", False),
     ("img_006.jpg", "JPEG, arithmetic-coded, progressive (SOF10)", False),
     ("img_007.jpg", "JPEG, lossless (SOF3), predictor 7, RGB", True),
+)
+# The second formats pass (phase_formats with WEBP_GIF): the same views as
+# WebP and GIF, written by utils/image_encode.py; lossy views at VP8
+# quantiser index WEBP_Q
+WEBP_Q = 10
+WEBP_GIF = (  # (file name, format, lossless)
+    ("img_000.webp", "WebP, VP8L, subtract-green + predictor", True),
+    ("img_001.webp", "WebP, VP8, normal filter, 1 token partition", False),
+    ("img_002.webp", "WebP, VP8, simple filter, 4 token partitions", False),
+    ("img_003.webp", "WebP, VP8X, VP8 + VP8L-compressed ALPH, gradient filter", False),
+    ("img_004.webp", "WebP, VP8L with alpha", True),
+    ("img_005.webp", "WebP, animated, first frame at (16, 8) on a transparent canvas", True),
+    ("img_006.gif", "GIF, 252-colour palette (indices)", True),
+    ("img_007.gif", "GIF, interlaced, grey ramp (L)", True),
 )
 # stages_cli convert without colmap: the JAX package's message
 CONVERT_MESSAGE = ("convert requires the `colmap` binary on PATH (feature extraction + "
@@ -1302,6 +1322,11 @@ def phase_stages(raw, model, preamble):
             pipes["formats_launches"], timings["formats"], timings[
                 "formats_max_abs_err"] = phase_formats(tmp, scene_dir)
             torch.cuda.empty_cache()
+            stamp("the second formats path: train-gs on WebP and GIF views (beside the QEM)")
+            pipes["webp_gif_launches"], timings["formats_webp_gif"], timings[
+                "formats_webp_gif_max_abs_err"] = phase_formats(
+                    tmp, scene_dir, WEBP_GIF, encode_webp_gif, "formats_webp_gif")
+            torch.cuda.empty_cache()
             stamp("the coloured sphere's scene and the pipeline paths (beside the QEM)")
             pipes["scene_dir"] = write_sphere_scene(tmp)
             pipes["launches"], timings["pipelines"] = phase_pipelines(
@@ -1362,6 +1387,7 @@ def phase_stages(raw, model, preamble):
     frosting_launches["parallel"] = pipes["parallel_launches"]
     frosting_launches["pipeline_multichip"] = pipes["pmc_launches"]
     frosting_launches["formats"] = pipes["formats_launches"]
+    frosting_launches["formats_webp_gif"] = pipes["webp_gif_launches"]
     return pipes["preamble"], launches, extract_launches, frosting_launches, timings
 
 
@@ -2272,42 +2298,91 @@ def _psnr8(got, src):
 
 
 def encode_format(i, rgb):
-    """View i of FORMATS as file bytes, written without PIL; for the
-    arithmetic-coded view also the Huffman-coded file of the same
-    coefficients (else None)."""
+    """View i of FORMATS written without PIL: {"body": file bytes, "mode":
+    the mode it decodes to, "want": the array it decodes to where that is
+    exact (else the decode is held to JPEG_PSNR), "alpha": the alpha plane
+    it decodes to, "twin": for the arithmetic-coded view the Huffman-coded
+    file of the same coefficients}."""
     if i == 0:
-        return image_encode.tiff(rgb, 2, "deflate", predictor=True, rows_per_strip=64), None
-    if i == 1:
-        return image_encode.tiff(rgb, 2, "lzw", tile=(256, 256)), None
-    if i == 2:
-        return image_encode.bmp(rgb, 24), None
-    if i == 3:
-        return image_encode.bmp(rgb, 32, top_down=True, header=124,
-                                masks=(0xFF0000, 0xFF00, 0xFF, 0)), None
-    if i == 4:  # C, M, Y as Pillow returns them: the view; K = 255 composites as opaque
+        body = image_encode.tiff(rgb, 2, "deflate", predictor=True, rows_per_strip=64)
+    elif i == 1:
+        body = image_encode.tiff(rgb, 2, "lzw", tile=(256, 256))
+    elif i == 2:
+        body = image_encode.bmp(rgb, 24)
+    elif i == 3:
+        body = image_encode.bmp(rgb, 32, top_down=True, header=124,
+                                masks=(0xFF0000, 0xFF00, 0xFF, 0))
+    elif i == 4:  # C, M, Y as Pillow returns them: the view; K = 255 composites as opaque
         cmyk = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], -1)
-        return image_encode.jpeg(cmyk, "ycck"), None
-    if i == 5:
-        return image_encode.jpeg(rgb, "ycc", ((4, 1), (1, 1), (1, 1))), None
-    if i == 6:
+        return {"body": image_encode.jpeg(cmyk, "ycck"), "mode": "CMYK",
+                "alpha": cmyk[..., 3]}
+    elif i == 5:
+        return {"body": image_encode.jpeg(rgb, "ycc", ((4, 1), (1, 1), (1, 1))), "mode": "RGB"}
+    elif i == 6:
         huffman = image_encode.jpeg(rgb)
-        return image_encode.jpeg_arithmetic(huffman, progressive=True), huffman
-    return image_encode.jpeg_lossless(rgb, 7), None
+        return {"body": image_encode.jpeg_arithmetic(huffman, progressive=True), "mode": "RGB",
+                "twin": huffman}
+    else:
+        body = image_encode.jpeg_lossless(rgb, 7)
+    return {"body": body, "mode": "RGB", "want": rgb}
 
 
-def phase_formats(tmp, scene_dir):
-    """The formats path: the stages scene's 8 PNG views re-encoded, one
-    format each (FORMATS), as a second COLMAP scene with the same cameras
-    and points; each view decoded (host clock) and held to its source
-    (lossless views bitwise, lossy ones above JPEG_PSNR, the
+def view_alpha(h, w):
+    """A smooth alpha plane in [96, 255] for the views written with alpha."""
+    y, x = np.mgrid[0:h, 0:w]
+    return (175.5 + 79.5 * np.cos(x / 97.0) * np.cos(y / 61.0)).astype(np.uint8)
+
+
+def encode_webp_gif(i, rgb):
+    """View i of WEBP_GIF written without PIL, as encode_format returns it.
+    The views with alpha carry view_alpha; the animated one's canvas is
+    transparent black outside its first frame; the GIFs hold the view's
+    indices into a 6 x 7 x 6 colour cube, or its grey (BT.601 luma)."""
+    h, w = rgb.shape[:2]
+    rgba = np.concatenate([rgb, view_alpha(h, w)[..., None]], -1)
+    if i == 0:
+        return {"body": image_encode.webp(rgb), "mode": "RGB", "want": rgb}
+    if i in (1, 2):
+        body = image_encode.webp(rgb, lossless=False, q=WEBP_Q, filter_type=3 - i, level=24,
+                                 partitions=1 if i == 1 else 4)
+        return {"body": body, "mode": "RGB"}
+    if i == 3:
+        body = image_encode.webp(rgba, lossless=False, q=WEBP_Q, alpha_filter=3)
+        return {"body": body, "mode": "RGBA", "alpha": rgba[..., 3]}
+    if i == 4:
+        return {"body": image_encode.webp(rgba), "mode": "RGBA", "want": rgba}
+    if i == 5:
+        opaque = np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1)
+        want = np.zeros_like(opaque)
+        want[8:, 16:] = opaque[8:, 16:]
+        body = image_encode.webp_animation([(opaque[8:, 16:], 16, 8), (opaque[:64, :64], 0, 0)],
+                                           (w, h))
+        return {"body": body, "mode": "RGBA", "want": want}
+    if i == 6:
+        levels = np.array([6, 7, 6])
+        q = (rgb.astype(np.int32) * levels) // 256
+        index = (q[..., 0] * 42 + q[..., 1] * 6 + q[..., 2]).astype(np.uint8)
+        cube = np.stack(np.meshgrid(*[np.arange(n) for n in levels], indexing="ij"), -1)
+        palette = ((cube.reshape(-1, 3) * 2 + 1) * 128 // levels).astype(np.uint8)
+        return {"body": image_encode.gif(index, palette), "mode": "P", "want": index}
+    grey = np.rint(rgb.astype(np.float64) @ [0.299, 0.587, 0.114]).astype(np.uint8)
+    return {"body": image_encode.gif(grey, None, interlace=True), "mode": "L", "want": grey}
+
+
+def phase_formats(tmp, scene_dir, views=FORMATS, encode=encode_format, label="formats"):
+    """A formats path: the stages scene's 8 PNG views re-encoded, one
+    format each (views: FORMATS, or WEBP_GIF with encode_webp_gif), as a
+    second COLMAP scene with the same cameras and points; each view decoded
+    (host clock) and held to what it was written from (lossless views
+    bitwise, lossy ones above JPEG_PSNR, alpha planes bitwise, the
     arithmetic-coded one bitwise equal to its Huffman-coded twin); every
-    lossless view's ground truth, as the loader gives it, bitwise the PNG
-    scene's; then stages_cli train-gs on it in process at 1920x1080
+    ground truth that is the source view, as the loader gives it, bitwise
+    the PNG scene's; then stages_cli train-gs on it in process at 1920x1080
     (FORMATS_GS_ITERS iterations; B1 and B2 once an iteration, the counts'
     rise over the command: nothing else launches them beside stage 3's
     QEM), and B1 and B2 held against their plain versions on its model's
     first view. Returns (launches, results, max abs errors)."""
-    fmt_dir, out = os.path.join(tmp, "formats_scene"), os.path.join(tmp, "formats_out")
+    fmt_dir, out = os.path.join(tmp, f"{label}_scene"), os.path.join(tmp, f"{label}_out")
     os.makedirs(os.path.join(fmt_dir, "images"))
     os.makedirs(out)
     shutil.copytree(os.path.join(scene_dir, "sparse"), os.path.join(fmt_dir, "sparse"))
@@ -2315,34 +2390,40 @@ def phase_formats(tmp, scene_dir):
     with open(images_bin, "rb") as fh:
         poses = fh.read()
     res = {"bytes": {}, "encode_s": {}, "decode_ms": {}, "psnr": {}}
-    for i, (name, what, lossless) in enumerate(FORMATS):
+    same_gt = set()  # the views whose ground truth is the PNG scene's
+    for i, (name, what, lossless) in enumerate(views):
         png = f"img_{i:03d}.png"
         poses = poses.replace(png.encode() + b"\x00", name.encode() + b"\x00")
         src, _mode = image_io.read_image(os.path.join(scene_dir, "images", png))
         t0 = time.perf_counter()
-        body, twin = encode_format(i, src)
+        spec = encode(i, src)
         res["encode_s"][name] = time.perf_counter() - t0
+        body = spec["body"]
         path = os.path.join(fmt_dir, "images", name)
         with open(path, "wb") as fh:
             fh.write(body)
         got, mode = image_io.read_image(path)
         res["decode_ms"][name] = host_ms(lambda: image_io.read_image(path), 3)
         res["bytes"][name] = len(body)
-        res["psnr"][name] = _psnr8(got[..., :3], src)
-        log(f"formats: {name} ({what}): {len(body)} bytes, encoded in "
+        res["psnr"][name] = _psnr8(got[..., :3], src) if got.ndim == 3 else None
+        psnr = "" if got.ndim == 2 else f", PSNR against its source {res['psnr'][name]:.2f} dB"
+        log(f"{label}: {name} ({what}): {len(body)} bytes, encoded in "
             f"{res['encode_s'][name]:.2f} s, decoded in {res['decode_ms'][name]:.1f} ms "
-            f"(host clock, median of 3), {mode} {got.shape}, PSNR against its source "
-            f"{res['psnr'][name]:.2f} dB")
-        if lossless:
-            ok = mode == "RGB" and np.array_equal(got, src)
-        elif mode == "CMYK":
-            ok = bool((got[..., 3] == 255).all()) and res["psnr"][name] >= JPEG_PSNR
+            f"(host clock, median of 3), {mode} {got.shape}{psnr}")
+        want = spec.get("want")
+        ok = mode == spec["mode"] and lossless == (want is not None)
+        if want is not None:
+            ok = ok and got.dtype == want.dtype and np.array_equal(got, want)
+            if mode == "RGB" and want is src:
+                same_gt.add(name)
         else:
-            ok = mode == "RGB" and res["psnr"][name] >= JPEG_PSNR
-        if twin is not None:
-            ok = ok and np.array_equal(got, image_io.decode(twin)[0])
+            ok = ok and res["psnr"][name] >= JPEG_PSNR
+        if "alpha" in spec:
+            ok = ok and np.array_equal(got[..., 3], spec["alpha"])
+        if "twin" in spec:
+            ok = ok and np.array_equal(got, image_io.decode(spec["twin"])[0])
         if not ok:
-            raise AssertionError(f"formats: {name} ({what}) is not its source")
+            raise AssertionError(f"{label}: {name} ({what}) is not what was written")
     with open(images_bin, "wb") as fh:
         fh.write(poses)
 
@@ -2351,16 +2432,16 @@ def phase_formats(tmp, scene_dir):
     fmt_scene = dataset_lib.load_colmap_scene(fmt_dir, eval_split=False, device=DEV)
     gts = {c.image_name: c.image() for c in fmt_scene.train_cameras}
     res["scene_load_ms"] = (time.perf_counter() - t0) * 1e3
-    for (name, what, lossless), cam in zip(FORMATS, png_scene.train_cameras):
+    for (name, what, lossless), cam in zip(views, png_scene.train_cameras):
         want = cam.image()
         got = gts[name]
-        if lossless and not (got.dtype == want.dtype and np.array_equal(got, want)):
-            raise AssertionError(f"formats: {name}'s ground truth differs from the PNG's")
-        if not lossless and not (got.shape == want.shape and np.isfinite(got).all()):
-            raise AssertionError(f"formats: {name}'s ground truth is not a {want.shape} image")
+        if name in same_gt and not (got.dtype == want.dtype and np.array_equal(got, want)):
+            raise AssertionError(f"{label}: {name}'s ground truth differs from the PNG's")
+        if not (got.shape == want.shape and np.isfinite(got).all()):
+            raise AssertionError(f"{label}: {name}'s ground truth is not a {want.shape} image")
     del png_scene, fmt_scene, gts
-    log(f"formats: the scene's 8 ground truths loaded in {res['scene_load_ms']:.0f} ms; the "
-        "lossless views' bitwise the PNG scene's")
+    log(f"{label}: the scene's 8 ground truths loaded in {res['scene_load_ms']:.0f} ms; "
+        f"{sorted(same_gt)} bitwise the PNG scene's")
 
     common = ["-s", fmt_dir, "-o", out, "--max-instances", str(STAGE_MAX_INSTANCES),
               "--device", DEV]
@@ -2372,14 +2453,14 @@ def phase_formats(tmp, scene_dir):
     res["train_gs_s"] = time.perf_counter() - t0
     launches = {"blend_forward": blend_cuda.blend_forward.launches - before[0],
                 "blend_backward": blend_cuda.blend_backward.launches - before[1]}
-    log(f"formats: train-gs {res['train_gs_s']:.1f} s ({FORMATS_GS_ITERS} iterations, the "
+    log(f"{label}: train-gs {res['train_gs_s']:.1f} s ({FORMATS_GS_ITERS} iterations, the "
         f"scene's decode included); "
         + "; ".join(f"it {h['iter']} loss {h['loss']:.4f}" for h in hist)
         + f"; launches {launches} (predicted {FORMATS_GS_ITERS} each)")
     if not all(np.isfinite(h["loss"]) and not h["overflow"] for h in hist):
-        raise AssertionError(f"formats: train-gs, a non-finite loss or an overflow: {hist}")
+        raise AssertionError(f"{label}: train-gs, a non-finite loss or an overflow: {hist}")
     if launches != {"blend_forward": FORMATS_GS_ITERS, "blend_backward": FORMATS_GS_ITERS}:
-        raise AssertionError(f"formats: train-gs launched {launches}")
+        raise AssertionError(f"{label}: train-gs launched {launches}")
     res["launches"] = launches
 
     args = stages_cli.build_parser().parse_args(["render", *common])
@@ -2388,8 +2469,8 @@ def phase_formats(tmp, scene_dir):
         os.path.join(out, "gs.ply"), device=DEV))
     with torch.inference_mode():
         fields, binned = blend_inputs(live, scams[0], srcfg)
-        errs = {"blend_forward": compare("formats view 0", fields, binned, srcfg),
-                "blend_backward": compare_backward("formats view 0", fields, binned, srcfg)}
+        errs = {"blend_forward": compare(f"{label} view 0", fields, binned, srcfg),
+                "blend_backward": compare_backward(f"{label} view 0", fields, binned, srcfg)}
     del live, fields, binned, _scene, _gt
     return launches, res, errs
 
@@ -3506,6 +3587,7 @@ def main():
     log(json.dumps({"stages": stage_times}))
     max_err = pre.max_err
     for errs in (stage_times["depth_render_max_abs_err"], stage_times["formats_max_abs_err"],
+                 stage_times["formats_webp_gif_max_abs_err"],
                  stage_times["parallel_max_abs_err"],
                  stage_times["pipeline_multichip_max_abs_err"],
                  *stage_times["frosting"]["max_abs_err"].values(),
@@ -3527,6 +3609,7 @@ def main():
                 "bench": pre.bench_launches[name],
                 "stages": stage_launches[name],
                 "stages_formats": frosting_launches["formats"][name],
+                "stages_formats_webp_gif": frosting_launches["formats_webp_gif"][name],
                 "extract_shell": extract_launches[name],
                 "frosting": frosting_launches["frosting"][name],
                 "frosting_culled": frosting_launches["frosting_culled"][name],

@@ -5,8 +5,10 @@ sources' C launchers on PyTorch's current stream.
 Each ``csrc/<name>.cu`` (a CUDA source, built by ``nvcc``) or
 ``csrc/<name>.cpp`` (host code, built by ``g++``) becomes
 ``_build/lib<name>-<hash>.so``, where the hash covers the source, the
-compiler flags and, for a CUDA source, every header ``csrc/*.cuh``, so an
-edited source or header is rebuilt and an unchanged one is reused.
+compiler flags and its headers (every ``csrc/*.cuh`` for a CUDA source;
+for host code the ``csrc/*.h`` it includes by name, which include system
+headers only), so an edited source or header is rebuilt and an unchanged
+one is reused.
 ``build_all`` starts one compiler per source at once and waits for all of
 them. Importing this module needs neither compiler nor a GPU; building
 and launching do.
@@ -63,6 +65,10 @@ def library_path(name: str) -> Path:
             digest.update(header.name.encode() + b"\0" + header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
     else:
+        included = {line.split('"')[1] for line in src.read_text().splitlines()
+                    if line.startswith('#include "')}
+        for header in sorted(included):
+            digest.update(header.encode() + b"\0" + (CSRC / header).read_bytes())
         digest.update(" ".join(GXX_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

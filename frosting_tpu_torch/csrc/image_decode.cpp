@@ -4,7 +4,8 @@
 // just decoded; the Huffman and arithmetic entropy decoding of a sequential
 // (baseline) or progressive JPEG scan, a lossless JPEG scan's differences and
 // their prediction, and libjpeg's block smoothing of a progressive image;
-// TIFF's LZW and PackBits; BMP's RLE4 and RLE8 as Pillow reads them.
+// TIFF's LZW and PackBits; BMP's RLE4 and RLE8 as Pillow reads them; GIF's
+// LZW. (WebP's are in webp_decode.cpp.)
 // Everything else (chunk, marker and tag parsing, the IDCT, chroma
 // upsampling, colour conversion, resizing) is vectorised numpy in
 // utils/image.py.
@@ -1092,6 +1093,70 @@ int bmp_rle_decode(const uint8_t* data, int64_t len, int64_t start, int rle4, in
     }
   }
   *n_out = n < dest ? n : dest;
+  return 0;
+}
+
+// GIF's LZW (GIF89a, appendix F) over the image's data sub-blocks joined
+// into src (n bytes): codes LSB first, min_size + 1 bits wide after each
+// clear code, one bit wider whenever the table fills the width, at most 12
+// bits; once the table holds 4096 entries it stops growing until the next
+// clear code (as Pillow's GifDecode.c). Writes at most cap indices to dst
+// and their count to n_out; stops at the end code or when the data end.
+int gif_lzw_decode(const uint8_t* src, int64_t n, int min_size, uint8_t* dst, int64_t cap,
+                   int64_t* n_out) {
+  if (min_size < 1 || min_size > 11) return -1;
+  static thread_local uint16_t prefix[4096];
+  static thread_local uint8_t suffix[4096], first[4096];
+  static thread_local uint8_t stack[4096];
+  const int clear = 1 << min_size, end = clear + 1;
+  for (int i = 0; i < clear; ++i) {
+    prefix[i] = 0;
+    suffix[i] = first[i] = static_cast<uint8_t>(i);
+  }
+  int64_t out = 0, bitpos = 0;
+  const int64_t nbits_total = n * 8;
+  int width = min_size + 1, next = clear + 2, old = -1;
+  while (out < cap && bitpos + width <= nbits_total) {
+    int code = 0;
+    for (int i = 0; i < width; ++i, ++bitpos)
+      code |= ((src[bitpos >> 3] >> (bitpos & 7)) & 1) << i;
+    if (code == clear) {
+      width = min_size + 1;
+      next = clear + 2;
+      old = -1;
+      continue;
+    }
+    if (code == end) break;
+    if (old < 0) {  // the first code after a clear code
+      if (code > clear) return -2;
+      dst[out++] = static_cast<uint8_t>(code);
+      old = code;
+      continue;
+    }
+    if (code > next) return -2;
+    int len = 0, c = code;
+    uint8_t head;
+    if (code == next) {  // KwKwK: the previous string and its own first byte
+      if (next >= 4096) return -2;
+      stack[len++] = first[old];
+      c = old;
+    }
+    for (;; c = prefix[c]) {
+      stack[len++] = suffix[c];
+      if (c < clear) break;
+    }
+    head = stack[len - 1];
+    while (len > 0 && out < cap) dst[out++] = stack[--len];
+    if (next < 4096) {
+      prefix[next] = static_cast<uint16_t>(old);
+      suffix[next] = head;
+      first[next] = first[old];
+      if (next == (1 << width) - 1 && width < 12) ++width;
+      ++next;
+    }
+    old = code;
+  }
+  *n_out = out;
   return 0;
 }
 

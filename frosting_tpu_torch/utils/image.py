@@ -1,12 +1,14 @@
-"""PNG, JPEG, TIFF and BMP decoding, and PIL's default resize, without PIL.
+"""PNG, JPEG, TIFF, BMP, WebP and GIF decoding, and PIL's default resize,
+without PIL.
 
 The JAX package reads ground-truth images as ``np.asarray(Image.open(p))``
 and resizes them with ``im.resize((w, h))`` (``frosting_tpu/scene/
 dataset.py``). The port must run where PIL is not installed, so it decodes
 the files itself and aims at the same arrays, bit for bit (against Pillow
-12.1.0 with libjpeg-turbo 3.1 and libtiff 4.7; ``tests/test_torch_image.py``
-and ``tests/test_torch_image_formats.py``). The container is told by its
-magic bytes. Each image comes back in PIL's mode, quirks included:
+12.1.0 with libjpeg-turbo 3.1, libtiff 4.7 and libwebp 1.6;
+``tests/test_torch_image.py``, ``tests/test_torch_image_formats.py`` and
+``tests/test_torch_image_webp.py``). The container is told by its magic
+bytes. Each image comes back in PIL's mode, quirks included:
 
 * PNG: colour types 0, 2, 3 and 6 at 8 bit, 16-bit grey and RGB(A), grey
   and palette images at 1, 2 and 4 bits, interlaced (Adam7) or not. A
@@ -42,7 +44,26 @@ magic bytes. Each image comes back in PIL's mode, quirks included:
   quirks included), 16-bit 5-5-5 and 5-6-5, 24- and 32-bit, the
   BI_BITFIELDS layouts Pillow knows, OS/2 and V2-V5 headers, bottom-up and
   top-down rows.
-* Other containers (GIF, WebP, JPEG 2000, ...) raise ValueError.
+* WebP (libwebp's animation decoder, which Pillow's plugin drives: RGBA
+  output, not premultiplied): lossless VP8L (every transform, the colour
+  cache, meta prefix codes, LZ77), lossy VP8 key frames (segments, B_PRED,
+  1-8 token partitions, the simple and normal loop filters) through
+  libwebp's fancy 4:2:0 upsampler and 14-bit fixed-point YUV -> RGB (not
+  BT.601 in float), VP8X with an ALPH chunk (raw or VP8L-compressed; the
+  none / horizontal / vertical / gradient filters; pre-processing ignored,
+  as libwebp's default decoding ignores it; ICCP, EXIF and XMP not
+  applied; a still frame that does not fill its VP8X canvas raises
+  ValueError, as libwebp refuses it), and the first frame of an animation
+  on a canvas of transparent black at its (even) offset, unblended.
+  "RGBA" where libwebp reports alpha
+  (a VP8L header's bit, else VP8X's flag or an ALPH chunk), else "RGB".
+* GIF (the first frame): the logical screen, grown to hold the frame as
+  Pillow grows it; global or local colour tables; LZW at any minimum code
+  size, a table that fills without a clear code included; interlaced
+  rows. The indices ("P"), or "L" where the palette is the grey ramp
+  0, 1, 2, ... or absent (Pillow's _is_palette_needed); the screen outside
+  the frame holds the graphic-control transparency index, else 0.
+* Other containers (JPEG 2000, AVIF, PPM, TGA, ...) raise ValueError.
 * resize: Pillow's BICUBIC (its default filter), horizontal pass then
   vertical: in fixed point with 22 precision bits for 8-bit modes ("L",
   "RGB", "CMYK"; "RGBA" premultiplied), each pass clipped to uint8; in
@@ -50,9 +71,12 @@ magic bytes. Each image comes back in PIL's mode, quirks included:
   1-bit images by NEAREST, as PIL does.
 
 The serial parts (PNG's row filters, JPEG's entropy decoding, lossless
-prediction and block smoothing, TIFF's LZW and PackBits, BMP's RLE) are
-C++ (``csrc/image_decode.cpp``, built with g++ at first use by
-``_build.py``).
+prediction and block smoothing, TIFF's LZW and PackBits, BMP's RLE, GIF's
+LZW) are C++ (``csrc/image_decode.cpp``), and so are WebP's (the VP8
+boolean decoder, reconstruction and loop filter, VP8L's prefix codes,
+LZ77, colour cache and transforms, the ALPH filters;
+``csrc/webp_decode.cpp`` with ``csrc/vp8.h``), built with g++ at first use
+by ``_build.py``.
 """
 
 from __future__ import annotations
@@ -113,6 +137,7 @@ def _lib() -> ctypes.CDLL:
         "tiff_lzw_decode": [_PTR, _I64, _PTR, _I64, ctypes.POINTER(_I64)],
         "tiff_packbits_decode": [_PTR, _I64, _PTR, _I64, ctypes.POINTER(_I64)],
         "bmp_rle_decode": [_PTR, _I64, _I64, _INT, _I64, _I64, _PTR, ctypes.POINTER(_I64)],
+        "gif_lzw_decode": [_PTR, _I64, _INT, _PTR, _I64, ctypes.POINTER(_I64)],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -977,6 +1002,345 @@ def decode_bmp(data: bytes) -> Tuple[np.ndarray, str]:
     return np.ascontiguousarray(px), mode
 
 
+# --- WebP -----------------------------------------------------------------
+
+def _webp_lib() -> ctypes.CDLL:
+    lib = _build.load("webp_decode")
+    signatures = {
+        "vp8_decode": [_PTR, _I64, _PTR, _PTR, _PTR],
+        "vp8l_decode": [_PTR, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _PTR],
+        "alpha_unfilter": [_PTR, _I64, _I64, ctypes.c_int],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _le24(b: bytes) -> int:
+    return b[0] | (b[1] << 8) | (b[2] << 16)
+
+
+def _riff_chunks(data: bytes, pos: int, end: int):
+    """(fourcc, payload) of the RIFF chunks in data[pos:end]; each payload
+    padded to an even size."""
+    end = min(end, len(data))
+    while pos + 8 <= end:
+        (n,) = struct.unpack("<I", data[pos + 4:pos + 8])
+        yield data[pos:pos + 4], data[pos + 8:pos + 8 + n]
+        pos += 8 + n + (n & 1)
+
+
+def _vp8_size(payload: bytes) -> Tuple[int, int]:
+    """A VP8 key frame's 14-bit width and height (their 2-bit scale is
+    ignored, as libwebp ignores it)."""
+    if len(payload) < 10 or payload[0] & 1 or payload[3:6] != b"\x9d\x01\x2a":
+        raise ValueError("WebP: not a VP8 key frame")
+    w, h = struct.unpack("<HH", payload[6:10])
+    return w & 0x3FFF, h & 0x3FFF
+
+
+def _vp8l_header(payload: bytes) -> Tuple[int, int, bool]:
+    """(width, height, alpha is used) of a VP8L stream's header."""
+    if len(payload) < 5 or payload[0] != 0x2F:
+        raise ValueError("WebP: not a VP8L stream")
+    (bits,) = struct.unpack("<I", payload[1:5])
+    if bits >> 29:
+        raise ValueError(f"WebP: VP8L version {bits >> 29}")
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1, bool((bits >> 28) & 1)
+
+
+def _webp_layout(data: bytes) -> dict:
+    """The file's canvas, libwebp's has_alpha (WebPGetFeatures: a VP8L
+    stream's header bit, else the VP8X flag or an ALPH chunk beside a still
+    VP8 frame) and its first frame: offset, image chunk, ALPH chunk. A
+    still image's frame must fill its VP8X canvas; only an animation's
+    first frame is placed on a larger one."""
+    if data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        raise ValueError("not a WebP file")
+    (riff_size,) = struct.unpack("<I", data[4:8])
+    chunks = list(_riff_chunks(data, 12, 8 + riff_size))
+    if not chunks:
+        raise ValueError("WebP without chunks")
+    kind, payload = chunks[0]
+    if kind == b"VP8 ":
+        w, h = _vp8_size(payload)
+        return {"canvas": (w, h), "has_alpha": False, "offset": (0, 0),
+                "image": (kind, payload), "alpha": None}
+    if kind == b"VP8L":
+        w, h, alpha = _vp8l_header(payload)
+        return {"canvas": (w, h), "has_alpha": alpha, "offset": (0, 0),
+                "image": (kind, payload), "alpha": None}
+    if kind != b"VP8X" or len(payload) < 10:
+        raise ValueError(f"WebP: unknown first chunk {kind!r}")
+    flags = payload[0]
+    canvas = (1 + _le24(payload[4:7]), 1 + _le24(payload[7:10]))
+    has_alpha = bool(flags & 0x10)
+    offset = (0, 0)
+    frame_chunks = chunks[1:]
+    if flags & 0x02:  # animation: the first ANMF frame
+        anmf = next((p for k, p in chunks if k == b"ANMF"), None)
+        if anmf is None or len(anmf) < 16:
+            raise ValueError("animated WebP without a frame")
+        offset = (2 * _le24(anmf[0:3]), 2 * _le24(anmf[3:6]))
+        frame_chunks = list(_riff_chunks(anmf, 16, len(anmf)))
+    alpha, image = None, None
+    for k, p in frame_chunks:
+        if k == b"ALPH" and alpha is None:
+            alpha = p
+        elif k in (b"VP8 ", b"VP8L"):
+            image = (k, p)
+            break
+    if image is None:
+        raise ValueError("WebP without an image chunk")
+    if not flags & 0x02:
+        if image[0] == b"VP8L":
+            *size, has_alpha = _vp8l_header(image[1])
+        else:
+            size = _vp8_size(image[1])
+            has_alpha = has_alpha or alpha is not None
+        if tuple(size) != canvas:  # libwebp refuses it ("image size coherency")
+            raise ValueError("WebP: a still image's frame differs from its VP8X canvas")
+    return {"canvas": canvas, "has_alpha": has_alpha, "offset": offset, "image": image,
+            "alpha": None if image[0] == b"VP8L" else alpha}
+
+
+def _vp8l_argb(lib, stream: bytes, w: int, h: int, header: bool) -> np.ndarray:
+    src = np.frombuffer(stream, np.uint8)
+    argb = np.empty((h, w), np.uint32)
+    err = lib.vp8l_decode(src.ctypes.data, src.size, w, h, int(header), argb.ctypes.data)
+    if err:
+        raise ValueError(f"corrupt WebP lossless stream (decoder error {err})")
+    return argb
+
+
+def _fancy_pairs(t: np.ndarray, c: np.ndarray, w: int):
+    """libwebp's fancy upsampler (dsp/upsampling.c UPSAMPLE_FUNC) on chroma
+    row pairs: t the rows above, c the rows below ([P, (w + 1) // 2]
+    int32) -> the output rows nearer t and nearer c ([P, w]): the 9-3-3-1
+    filter through its two diagonals, with libwebp's rounding; the first
+    column, and the last of an even width, 3-1 vertically only."""
+    top = np.empty((t.shape[0], w), np.int32)
+    bot = np.empty_like(top)
+    top[:, 0] = (3 * t[:, 0] + c[:, 0] + 2) >> 2
+    bot[:, 0] = (3 * c[:, 0] + t[:, 0] + 2) >> 2
+    n = (w - 1) >> 1
+    if n:
+        tl, tt, lt, cc = t[:, :n], t[:, 1:n + 1], c[:, :n], c[:, 1:n + 1]
+        avg = tl + tt + lt + cc + 8
+        d12 = (avg + 2 * (tt + lt)) >> 3
+        d03 = (avg + 2 * (tl + cc)) >> 3
+        top[:, 1:2 * n:2] = (d12 + tl) >> 1
+        top[:, 2:2 * n + 1:2] = (d03 + tt) >> 1
+        bot[:, 1:2 * n:2] = (d03 + lt) >> 1
+        bot[:, 2:2 * n + 1:2] = (d12 + cc) >> 1
+    if w % 2 == 0:
+        tl, lt = t[:, n], c[:, n]
+        top[:, w - 1] = (3 * tl + lt + 2) >> 2
+        bot[:, w - 1] = (3 * lt + tl + 2) >> 2
+    return top, bot
+
+
+def _fancy_upsample(plane: np.ndarray, w: int, h: int) -> np.ndarray:
+    """A chroma plane ([(h + 1) // 2, (w + 1) // 2]) at full size as
+    libwebp's EmitFancyRGB walks the rows: the first row from chroma row 0
+    alone, rows 2k - 1 and 2k from chroma rows k - 1 and k, the last row of
+    an even height from the last chroma row alone."""
+    p = plane.astype(np.int32)
+    out = np.empty((h, w), np.int32)
+    out[0] = _fancy_pairs(p[:1], p[:1], w)[0][0]
+    k = (h - 1) // 2
+    if k:
+        out[1:2 * k:2], out[2:2 * k + 1:2] = _fancy_pairs(p[:k], p[1:k + 1], w)
+    if h % 2 == 0:
+        last = p[h // 2 - 1:h // 2]
+        out[h - 1] = _fancy_pairs(last, last, w)[0][0]
+    return out
+
+
+def _yuv_to_rgb_webp(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """libwebp's dsp/yuv.h VP8YuvToRgb: 14-bit fixed point (MultHi, then
+    6 fractional bits clipped to 8)."""
+
+    def mult_hi(a, c):
+        return (a * c) >> 8
+
+    def clip8(x):
+        return np.where((x & ~16383) == 0, x >> 6, np.where(x < 0, 0, 255))
+
+    yy = mult_hi(y, 19077)
+    r = clip8(yy + mult_hi(v, 26149) - 14234)
+    g = clip8(yy - mult_hi(u, 6419) - mult_hi(v, 13320) + 8708)
+    b = clip8(yy + mult_hi(u, 33050) - 17685)
+    return np.stack([r, g, b], axis=-1).astype(np.uint8)
+
+
+def _vp8_rgb(lib, frame: bytes) -> np.ndarray:
+    """A VP8 key frame -> [h, w, 3] RGB as libwebp's default RGBA output
+    gives it."""
+    w, h = _vp8_size(frame)
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    planes = [np.empty((16 * mb_h, 16 * mb_w), np.uint8)] + [
+        np.empty((8 * mb_h, 8 * mb_w), np.uint8) for _ in range(2)]
+    src = np.frombuffer(frame, np.uint8)
+    err = lib.vp8_decode(src.ctypes.data, src.size, *(p.ctypes.data for p in planes))
+    if err:
+        raise ValueError(f"corrupt WebP lossy frame (decoder error {err})")
+    yp, up, vp = planes
+    uw, uh = (w + 1) >> 1, (h + 1) >> 1
+    u = _fancy_upsample(up[:uh, :uw], w, h)
+    v = _fancy_upsample(vp[:uh, :uw], w, h)
+    return _yuv_to_rgb_webp(yp[:h, :w].astype(np.int32), u, v)
+
+
+def _alph(lib, payload: bytes, w: int, h: int) -> np.ndarray:
+    """An ALPH chunk -> the [h, w] alpha plane: raw or a headerless VP8L
+    stream (alpha in green), then the filter undone; pre-processing is
+    ignored, as libwebp's default decoding (no alpha dithering) ignores it."""
+    if not payload:
+        raise ValueError("WebP: empty ALPH chunk")
+    method, filt = payload[0] & 3, (payload[0] >> 2) & 3
+    if method == 0:
+        if len(payload) < 1 + w * h:
+            raise ValueError("WebP: truncated ALPH chunk")
+        alpha = np.frombuffer(payload, np.uint8, w * h, 1).reshape(h, w).copy()
+    elif method == 1:
+        alpha = ((_vp8l_argb(lib, payload[1:], w, h, False) >> 8) & 0xFF).astype(np.uint8)
+    else:
+        raise ValueError(f"WebP: ALPH compression {method}")
+    if filt:
+        lib.alpha_unfilter(alpha.ctypes.data, w, h, filt)
+    return alpha
+
+
+def decode_webp(data: bytes) -> Tuple[np.ndarray, str]:
+    """WebP bytes -> (array, mode) as ``np.asarray(Image.open(...))`` and
+    ``Image.mode`` give them with Pillow's WebP plugin (libwebp's animation
+    decoder, RGBA output, not premultiplied): "RGBA" when libwebp reports
+    alpha, else "RGB". An animated file gives its first frame on a canvas
+    of transparent black."""
+    lay = _webp_layout(data)
+    lib = _webp_lib()
+    kind, payload = lay["image"]
+    if kind == b"VP8L":
+        w, h, _a = _vp8l_header(payload)
+        argb = _vp8l_argb(lib, payload, w, h, True)
+        rgba = np.stack([(argb >> s) & 0xFF for s in (16, 8, 0, 24)], axis=-1).astype(np.uint8)
+    else:
+        w, h = _vp8_size(payload)
+        alpha = (np.full((h, w), 255, np.uint8) if lay["alpha"] is None
+                 else _alph(lib, lay["alpha"], w, h))
+        rgba = np.concatenate([_vp8_rgb(lib, payload), alpha[..., None]], axis=-1)
+    cw, ch = lay["canvas"]
+    x0, y0 = lay["offset"]
+    if (w, h) != (cw, ch) or (x0, y0) != (0, 0):
+        if x0 + w > cw or y0 + h > ch:
+            raise ValueError("WebP frame outside its canvas")
+        canvas = np.zeros((ch, cw, 4), np.uint8)
+        canvas[y0:y0 + h, x0:x0 + w] = rgba
+        rgba = canvas
+    if lay["has_alpha"]:
+        return rgba, "RGBA"
+    return np.ascontiguousarray(rgba[..., :3]), "RGB"
+
+
+# --- GIF ------------------------------------------------------------------
+
+def _gif_palette_needed(p: bytes) -> bool:
+    """Pillow's _is_palette_needed: anything but the grey ramp 0, 1, 2, ..."""
+    return any(not (i // 3 == p[i] == p[i + 1] == p[i + 2]) for i in range(0, len(p) - 2, 3))
+
+
+def _gif_first_frame(data: bytes) -> dict:
+    """Walk a GIF as Pillow's GifImagePlugin does up to its first image:
+    the screen (grown to hold that image), whether a palette is needed,
+    the graphic-control transparency index, the image's extent, interlace
+    flag, LZW minimum code size and the offset of its data sub-blocks."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    width, height, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13
+    global_palette = None
+    if flags & 128:
+        p = data[pos:pos + (3 << ((flags & 7) + 1))]
+        pos += len(p)
+        if _gif_palette_needed(p):
+            global_palette = True
+
+    def block():
+        nonlocal pos
+        if pos < len(data) and data[pos]:
+            n = data[pos]
+            pos += 1 + n
+            return data[pos - n:pos]
+        pos += 1
+        return None
+
+    transparency = None
+    while pos < len(data):
+        s = data[pos]
+        pos += 1
+        if s == 0x3B:  # ";"
+            break
+        if s == 0x21:  # "!"
+            label = data[pos] if pos < len(data) else 0
+            pos += 1
+            b = block()
+            if label == 249 and b is not None:
+                if b[0] & 1:
+                    transparency = b[3]
+            elif label == 254:
+                while b:
+                    b = block()
+                continue
+            while block():
+                pass
+        elif s == 0x2C:  # ","
+            x0, y0, w, h, iflags = struct.unpack("<HHHHB", data[pos:pos + 9])
+            pos += 9
+            palette = None
+            if iflags & 128:
+                p = data[pos:pos + (3 << ((iflags & 7) + 1))]
+                pos += len(p)
+                palette = _gif_palette_needed(p)
+            frame_palette = palette if palette is not None else global_palette
+            return {"size": (max(x0 + w, width), max(y0 + h, height)),
+                    "mode": "P" if frame_palette else "L", "transparency": transparency,
+                    "extent": (x0, y0, w, h), "interlace": bool(iflags & 64),
+                    "min_size": data[pos], "data": pos + 1}
+    raise ValueError("image not found in GIF file")
+
+
+def decode_gif(data: bytes) -> Tuple[np.ndarray, str]:
+    """GIF bytes (the first frame) -> (array, mode) as
+    ``np.asarray(Image.open(...))`` and ``Image.mode`` give them with
+    Pillow's GIF plugin: the indices ("P"), or "L" where the palette is the
+    grey ramp or absent; the screen outside the frame is the transparency
+    index, or 0."""
+    g = _gif_first_frame(data)
+    width, height = g["size"]
+    x0, y0, w, h = g["extent"]
+    chunks, pos = [], g["data"]
+    while pos < len(data) and data[pos]:
+        chunks.append(data[pos + 1:pos + 1 + data[pos]])
+        pos += 1 + data[pos]
+    src = np.frombuffer(b"".join(chunks), np.uint8)
+    px = np.zeros(w * h, np.uint8)
+    n = _I64(0)
+    if _lib().gif_lzw_decode(src.ctypes.data, src.size, g["min_size"], px.ctypes.data, px.size,
+                             ctypes.byref(n)):
+        raise ValueError("corrupt GIF LZW data")
+    fill = g["transparency"] or 0
+    out = np.full((height, width), fill, np.uint8)
+    decoded = np.full(w * h, fill, np.uint8)  # the pixels the data hold, in file order
+    decoded[:n.value] = px[:n.value]
+    rows = (np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                            np.arange(1, h, 2)]) if g["interlace"] else np.arange(h))
+    out[y0:y0 + h, x0:x0 + w][rows] = decoded.reshape(h, w)
+    return out, g["mode"]
+
+
 # --- dispatch -------------------------------------------------------------
 
 def _container(head: bytes) -> str:
@@ -988,18 +1352,24 @@ def _container(head: bytes) -> str:
         return "tiff"
     if head[:2] == b"BM":
         return "bmp"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "webp"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
     return "other"
 
 
-_DECODERS = {"png": decode_png, "jpeg": decode_jpeg, "tiff": decode_tiff, "bmp": decode_bmp}
+_DECODERS = {"png": decode_png, "jpeg": decode_jpeg, "tiff": decode_tiff, "bmp": decode_bmp,
+             "webp": decode_webp, "gif": decode_gif}
+_UNPORTED = ("not a PNG, JPEG, TIFF, BMP, WebP or GIF file: the other containers PIL reads "
+             "(JPEG 2000, AVIF, ...) are still to be ported (ROADMAP A)")
 
 
 def decode(data: bytes) -> Tuple[np.ndarray, str]:
-    """PNG, JPEG, TIFF or BMP bytes -> (array, PIL mode)."""
+    """PNG, JPEG, TIFF, BMP, WebP or GIF bytes -> (array, PIL mode)."""
     kind = _container(data)
     if kind == "other":
-        raise ValueError("not a PNG, JPEG, TIFF or BMP file: the other containers PIL reads "
-                         "(GIF, WebP, JPEG 2000, ...) are still to be ported (ROADMAP A)")
+        raise ValueError(_UNPORTED)
     return _DECODERS[kind](data)
 
 
@@ -1015,9 +1385,13 @@ def image_size(path: str) -> Tuple[int, int]:
         kind = _container(head)
         if kind == "png":
             return struct.unpack(">II", head[16:24])
-        if kind in ("tiff", "bmp"):
+        if kind == "webp":
+            return _webp_layout(head + f.read())["canvas"]
+        if kind in ("tiff", "bmp", "gif"):
             f.seek(0)
             data = f.read()
+            if kind == "gif":
+                return _gif_first_frame(data)["size"]
             if kind == "tiff":
                 _order, tags = _tiff_tags(data)
                 return tags[256][0], tags[257][0]
@@ -1027,7 +1401,7 @@ def image_size(path: str) -> Tuple[int, int]:
             width, h_raw = struct.unpack("<II", data[18:26])
             return width, (2 ** 32 - h_raw if data[25] == 0xFF else h_raw)
         if kind != "jpeg":
-            raise ValueError(f"{path}: not a PNG, JPEG, TIFF or BMP file")
+            raise ValueError(f"{path}: {_UNPORTED}")
         f.seek(2)
         while True:
             marker = f.read(2)

@@ -1,13 +1,15 @@
-"""Small numpy writers of the TIFF, BMP and JPEG variants that
+"""Small numpy writers of the TIFF, BMP, JPEG, WebP and GIF variants that
 ``utils/image.py`` reads, for the tests and ``chip_smoke.py``: PIL cannot
 write most of them (tiled and planar TIFF, predictors, BMP bitfields and
 RLE, JPEG sampling factors other than 4:4:4, 4:2:2 and 4:2:0, YCCK,
-arithmetic coding, lossless JPEG), and the card's machine has no PIL. The
-port's loaders do not use this module.
+arithmetic coding, lossless JPEG, VP8's simple filter or more than one
+token partition, a chosen ALPH filter, a GIF whose LZW table fills), and
+the card's machine has no PIL. The port's loaders do not use this module.
 
-The serial parts, JPEG's arithmetic coder and TIFF's LZW, are C++
-(``csrc/image_encode.cpp``, built with g++ at first use by ``_build.py``).
-The JPEG writers use the example tables of ITU T.81 Annex K.
+The serial parts (JPEG's arithmetic coder, TIFF's and GIF's LZW, VP8L's bit
+packing, the VP8 frame writer) are C++ (``csrc/image_encode.cpp``, built
+with g++ at first use by ``_build.py``). The JPEG writers use the example
+tables of ITU T.81 Annex K.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import ctypes
 import struct
 import zlib
-from typing import Dict, Optional, Sequence, Tuple
+import heapq
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +82,13 @@ def _lib() -> ctypes.CDLL:
     lib.jpeg_encode_arith_scan.restype = _I64
     lib.tiff_lzw_encode.argtypes = [_PTR, _I64, _PTR, _I64]
     lib.tiff_lzw_encode.restype = _I64
+    _INT = ctypes.c_int
+    lib.gif_lzw_encode.argtypes = [_PTR, _I64, _INT, _INT, _PTR, _I64]
+    lib.gif_lzw_encode.restype = _I64
+    lib.lsb_pack.argtypes = [_PTR, _PTR, _I64, _PTR, _I64]
+    lib.lsb_pack.restype = _I64
+    lib.vp8_encode.argtypes = [_PTR, _PTR, _PTR] + [_INT] * 7 + [_PTR, _I64]
+    lib.vp8_encode.restype = _I64
     return lib
 
 
@@ -622,3 +632,404 @@ def bmp(pixels: np.ndarray, bits: int, palette: Optional[np.ndarray] = None,
     offset = 14 + len(info) + len(pal)
     return (b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + pal
             + data)
+
+
+# --- WebP -----------------------------------------------------------------
+
+def _chunk(fourcc: bytes, payload: bytes) -> bytes:
+    return fourcc + struct.pack("<I", len(payload)) + payload + b"\x00" * (len(payload) & 1)
+
+
+def _riff(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def _le24(v: int) -> bytes:
+    return struct.pack("<I", v)[:3]
+
+
+def _pack_lsb(values: np.ndarray, nbits: np.ndarray) -> bytes:
+    values = np.ascontiguousarray(values, np.uint32)
+    nbits = np.ascontiguousarray(nbits, np.uint8)
+    cap = int(nbits.sum(dtype=np.int64)) // 8 + 1
+    out = np.empty(cap, np.uint8)
+    n = _lib().lsb_pack(values.ctypes.data, nbits.ctypes.data, values.size, out.ctypes.data, cap)
+    return out[:n].tobytes()
+
+
+def _huffman_lengths(counts: np.ndarray, limit: int = 15) -> np.ndarray:
+    """Prefix code lengths for symbol counts, none longer than limit (the
+    counts halved until the Huffman code fits); one used symbol gets 1."""
+    counts = np.asarray(counts, np.int64)
+    used = np.flatnonzero(counts)
+    lengths = np.zeros(counts.size, np.int64)
+    if used.size == 1:
+        lengths[used] = 1
+        return lengths
+    c = counts[used].copy()
+    while True:
+        heap = [(int(v), i, (int(s),)) for i, (v, s) in enumerate(zip(c, used))]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(used.tolist(), 0)
+        k = len(heap)
+        while len(heap) > 1:
+            a, _, sa = heapq.heappop(heap)
+            b, _, sb = heapq.heappop(heap)
+            for sym in sa + sb:
+                depth[sym] += 1
+            heapq.heappush(heap, (a + b, k, sa + sb))
+            k += 1
+        if max(depth.values()) <= limit:
+            for sym, d in depth.items():
+                lengths[sym] = d
+            return lengths
+        c = np.maximum(c // 2, 1)
+
+
+def _codes_lsb(lengths: np.ndarray) -> np.ndarray:
+    """Canonical codes (shorter first, then by symbol), bit-reversed so
+    that an LSB-first writer sends each code's first bit first."""
+    codes = np.zeros(lengths.size, np.uint32)
+    code = 0
+    for length in range(1, 16):
+        for sym in np.flatnonzero(lengths == length):
+            rev = int(format(code, f"0{length}b")[::-1], 2)
+            codes[sym] = rev
+            code += 1
+        code <<= 1
+    return codes
+
+
+# RFC 9649 section 3.7.2.1.2: the order of the code length code lengths
+_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _prefix_code_header(lengths: np.ndarray) -> Tuple[list, list]:
+    """The bits that describe a prefix code: a simple code of one symbol,
+    or a normal code whose code lengths are sent one by one (no repeat
+    codes) under a code-length code of at most 7 bits. Returns (values,
+    widths)."""
+    used = np.flatnonzero(lengths)
+    if used.size <= 1:
+        sym = int(used[0]) if used.size else 0
+        wide = sym > 1
+        return [1, 0, int(wide), sym], [1, 1, 1, 8 if wide else 1]
+    cl_lengths = _huffman_lengths(np.bincount(lengths, minlength=19), 7)
+    cl_codes = _codes_lsb(cl_lengths)
+    vals, widths = [0, 15], [1, 4]
+    for sym in _CODE_LENGTH_ORDER:
+        vals.append(int(cl_lengths[sym]))
+        widths.append(3)
+    vals.append(0)  # every symbol's length follows
+    widths.append(1)
+    if (cl_lengths > 0).sum() == 1:  # one code length: sent in no bits
+        return vals, widths
+    vals += cl_codes[lengths].tolist()
+    widths += cl_lengths[lengths].tolist()
+    return vals, widths
+
+
+def _entropy_image(argb: np.ndarray, level0: bool) -> Tuple[list, list, np.ndarray, np.ndarray]:
+    """An entropy-coded image of ARGB pixels as literals under one group of
+    prefix codes (no colour cache, no LZ77): (header values, header widths,
+    per-pixel code values [n, 4], their widths [n, 4])."""
+    a = argb.reshape(-1).astype(np.uint32)
+    chans = [(a >> 8) & 0xFF, (a >> 16) & 0xFF, a & 0xFF, a >> 24]  # green, red, blue, alpha
+    vals, widths = [0], [1]  # no colour cache
+    if level0:
+        vals.append(0)  # no meta prefix codes
+        widths.append(1)
+    pix_vals, pix_widths = [], []
+    for i, ch in enumerate(chans):
+        counts = np.bincount(ch, minlength=280 if i == 0 else 256)
+        lengths = _huffman_lengths(counts)
+        hv, hw = _prefix_code_header(lengths)
+        vals += hv
+        widths += hw
+        single = (lengths > 0).sum() == 1
+        pix_vals.append(np.zeros(a.size, np.uint32) if single else _codes_lsb(lengths)[ch])
+        pix_widths.append(np.zeros(a.size, np.uint8) if single
+                          else lengths[ch].astype(np.uint8))
+    hv, hw = _prefix_code_header(np.zeros(40, np.int64))  # distance: unused
+    vals += hv
+    widths += hw
+    return vals, widths, np.stack(pix_vals, -1), np.stack(pix_widths, -1)
+
+
+def _channels(argb: np.ndarray) -> np.ndarray:
+    """[h, w] ARGB -> [4, h, w] int16 channels A, R, G, B."""
+    return np.stack([(argb >> s) & 0xFF for s in (24, 16, 8, 0)]).astype(np.int16)
+
+
+def _argb(ch: np.ndarray) -> np.ndarray:
+    c = (ch.astype(np.int64) & 0xFF).astype(np.uint32)
+    return (c[0] << 24) | (c[1] << 16) | (c[2] << 8) | c[3]
+
+
+def _vp8l_predictions(ch: np.ndarray):
+    """Each of the 14 VP8L predictors at every pixel ([4, h, w] channels,
+    neighbours from the image itself; the rightmost pixel's top-right is
+    the first pixel of its own row, as the decoder reads it). Yields
+    (mode, [4, h, w] prediction); row 0 and column 0 are fixed later."""
+    c = ch.astype(np.int32)
+    left = np.roll(c, 1, axis=2)
+    top = np.roll(c, 1, axis=1)
+    tl = np.roll(top, 1, axis=2)
+    tr = np.roll(top, -1, axis=2)
+    tr[:, :, -1] = c[:, :, 0]
+    tr[:, 0, -1] = 0
+
+    def avg(a, b):
+        return (a + b) >> 1
+
+    yield 0, np.broadcast_to(np.array([255, 0, 0, 0], np.int32)[:, None, None], c.shape)
+    yield 1, left
+    yield 2, top
+    yield 3, tr
+    yield 4, tl
+    yield 5, avg(avg(left, tr), top)
+    yield 6, avg(left, tl)
+    yield 7, avg(left, top)
+    yield 8, avg(tl, top)
+    yield 9, avg(top, tr)
+    yield 10, avg(avg(left, tl), avg(top, tr))
+    pick_top = (np.abs(left - tl).sum(0) - np.abs(top - tl).sum(0)) <= 0
+    yield 11, np.where(pick_top[None], top, left)
+    yield 12, np.clip(left + top - tl, 0, 255)
+    a = avg(left, top)
+    d = a - tl
+    yield 13, np.clip(a + np.where(d < 0, -((-d) >> 1), d >> 1), 0, 255)
+
+
+def _vp8l_predict(ch: np.ndarray, bits: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The predictor transform: per tile of 2^bits pixels the mode of least
+    residual, and the residuals ([4, h, w], mod 256). Returns (residual
+    channels, the modes' sub-image as ARGB)."""
+    _c, h, w = ch.shape
+    th, tw = -(-h // (1 << bits)), -(-w // (1 << bits))
+    best_cost = np.full((th, tw), np.iinfo(np.int64).max)
+    best_mode = np.zeros((th, tw), np.int64)
+    preds = {}
+    for mode, pred in _vp8l_predictions(ch):
+        r = (ch.astype(np.int32) - pred) & 0xFF
+        cost = np.minimum(r, 256 - r).sum(0)
+        cost = np.pad(cost, ((0, th * (1 << bits) - h), (0, tw * (1 << bits) - w)))
+        cost = cost.reshape(th, 1 << bits, tw, 1 << bits).sum((1, 3))
+        better = cost < best_cost
+        best_cost = np.where(better, cost, best_cost)
+        best_mode = np.where(better, mode, best_mode)
+        preds[mode] = pred
+    full = np.repeat(np.repeat(best_mode, 1 << bits, 0), 1 << bits, 1)[:h, :w]
+    pred = np.zeros(ch.shape, np.int32)
+    for mode, pm in preds.items():
+        pred = np.where((full == mode)[None], pm, pred)
+    pred[:, 0, :] = preds[1][:, 0, :]          # row 0: the left pixel
+    pred[:, 0, 0] = (255, 0, 0, 0)             # its first pixel: black
+    pred[:, 1:, 0] = preds[2][:, 1:, 0]        # column 0: the pixel above
+    residual = (ch.astype(np.int32) - pred) & 0xFF
+    return residual.astype(np.int16), (0xFF000000 | (best_mode.astype(np.uint32) << 8))
+
+
+def vp8l_stream(rgba: np.ndarray, predictor: bool = True, subtract_green: bool = True,
+                palette: bool = False, pred_bits: int = 4, header: bool = True) -> bytes:
+    """A VP8L stream (RFC 9649) of an [h, w, 3 or 4] uint8 image: with
+    palette, the colour-indexing transform (at most 256 colours; 2, 4 or 8
+    pixels bundled per byte for at most 16); else subtract-green and the
+    predictor transform (each tile's mode the one of least residual, all 14
+    tried), as asked. Literals under one group of prefix codes. header: the
+    0x2f signature and the size (a VP8L chunk), else the headerless stream
+    of an ALPH chunk."""
+    h, w = rgba.shape[:2]
+    a = rgba[..., 3] if rgba.shape[-1] == 4 else np.full((h, w), 255, np.uint8)
+    argb = ((a.astype(np.uint32) << 24) | (rgba[..., 0].astype(np.uint32) << 16)
+            | (rgba[..., 1].astype(np.uint32) << 8) | rgba[..., 2])
+    segments = []  # (values, widths) in stream order
+
+    def bits(vals, widths):
+        segments.append((np.array(vals, np.uint32), np.array(widths, np.uint8)))
+
+    def image(argb_image, level0):
+        hv, hw, pv, pw_ = _entropy_image(argb_image, level0)
+        bits(hv, hw)
+        segments.append((pv.reshape(-1), pw_.reshape(-1)))
+
+    if header:
+        bits([0x2F, w - 1, h - 1, int((a != 255).any()), 0], [8, 14, 14, 1, 3])
+    if palette:
+        colours, index = np.unique(argb.reshape(-1), return_inverse=True)
+        n = colours.size
+        if n > 256:
+            raise ValueError(f"{n} colours: colour indexing takes at most 256")
+        pbits = 0 if n > 16 else 1 if n > 4 else 2 if n > 2 else 3
+        bits([1, 3, n - 1], [1, 2, 8])
+        image(_argb(_channels(colours[None]) - _channels(
+            np.concatenate([[0], colours[:-1]]).astype(np.uint32)[None])), False)
+        index = index.reshape(h, w).astype(np.uint32)
+        per = 1 << pbits
+        pw = -(-w // per)
+        padded = np.zeros((h, pw * per), np.uint32)
+        padded[:, :w] = index
+        packed = np.zeros((h, pw), np.uint32)
+        for k in range(per):
+            packed |= padded[:, k::per] << (k * (8 >> pbits))
+        argb = 0xFF000000 | (packed << 8)
+    else:
+        ch = _channels(argb)
+        if subtract_green:
+            bits([1, 2], [1, 2])
+            ch[1] = (ch[1] - ch[2]) & 0xFF
+            ch[3] = (ch[3] - ch[2]) & 0xFF
+        if predictor:
+            bits([1, 0, pred_bits - 2], [1, 2, 3])
+            ch, modes = _vp8l_predict(ch, pred_bits)
+            image(modes, False)
+        argb = _argb(ch)
+    bits([0], [1])  # no more transforms
+    image(argb, True)
+    return _pack_lsb(np.concatenate([v for v, _w in segments]),
+                     np.concatenate([w_ for _v, w_ in segments]))
+
+
+def _rgb_to_yuv(rgb: np.ndarray):
+    """BT.601 studio-range Y, and U, V averaged over 2 x 2 pixels, the image
+    padded by edge replication to whole macroblocks."""
+    h, w = rgb.shape[:2]
+    mh, mw = -(-h // 16) * 16, -(-w // 16) * 16
+    x = np.pad(rgb.astype(np.float64), ((0, mh - h), (0, mw - w), (0, 0)), mode="edge") / 255.0
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 16 + 65.481 * r + 128.553 * g + 24.966 * b
+    u = 128 - 37.797 * r - 74.203 * g + 112.0 * b
+    v = 128 + 112.0 * r - 93.786 * g - 18.214 * b
+
+    def down(c):
+        return c.reshape(mh // 2, 2, mw // 2, 2).mean((1, 3))
+
+    return [np.ascontiguousarray(np.clip(np.rint(c), 0, 255).astype(np.uint8))
+            for c in (y, down(u), down(v))]
+
+
+def vp8_frame(rgb: np.ndarray, q: int = 20, filter_type: int = 2, level: int = 20,
+              sharpness: int = 0, partitions: int = 1) -> bytes:
+    """A VP8 key frame of an [h, w, 3] uint8 image: quantiser index q
+    (0-127), the normal (2), simple (1) or no (0) loop filter at level and
+    sharpness, 1, 2, 4 or 8 token partitions, a 16 x 16 mode or B_PRED
+    chosen per macroblock."""
+    h, w = rgb.shape[:2]
+    y, u, v = _rgb_to_yuv(rgb)
+    cap = 4 * y.size + 65536
+    out = np.empty(cap, np.uint8)
+    n = _lib().vp8_encode(y.ctypes.data, u.ctypes.data, v.ctypes.data, w, h, q, filter_type,
+                          level, sharpness, {1: 0, 2: 1, 4: 2, 8: 3}[partitions],
+                          out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError("VP8 frame larger than its buffer")
+    return out[:n].tobytes()
+
+
+def alph_chunk(alpha: np.ndarray, filter_method: int = 0, compressed: bool = True) -> bytes:
+    """An ALPH chunk's payload: the [h, w] alpha plane filtered (0 none,
+    1 horizontal, 2 vertical, 3 gradient) and stored raw or as a headerless
+    VP8L stream (alpha in green; the predictor transform only)."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    if filter_method:
+        pred[0, 1:] = a[0, :-1]  # the first row: from the left
+        pred[1:, 0] = a[:-1, 0]  # the first column: from above
+        if filter_method == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif filter_method == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    res = ((a - pred) & 0xFF).astype(np.uint8)
+    head = bytes([int(compressed) | (filter_method << 2)])
+    if not compressed:
+        return head + res.tobytes()
+    green = np.stack([np.zeros_like(res), res, np.zeros_like(res), np.full_like(res, 255)], -1)
+    return head + vp8l_stream(green, subtract_green=False, header=False)
+
+
+def webp(img: np.ndarray, lossless: bool = True, alpha_filter: int = 3,
+         alpha_compressed: bool = True, **options) -> bytes:
+    """A still WebP file of an [h, w, 3 or 4] uint8 image: lossless (a VP8L
+    chunk; options to vp8l_stream), or lossy (a VP8 chunk; options to
+    vp8_frame), with an alpha channel in an ALPH chunk behind a VP8X
+    header."""
+    h, w = img.shape[:2]
+    if lossless:
+        return _riff(_chunk(b"VP8L", vp8l_stream(img, **options)))
+    frame = _chunk(b"VP8 ", vp8_frame(np.ascontiguousarray(img[..., :3]), **options))
+    if img.shape[-1] == 3:
+        return _riff(frame)
+    vp8x = _chunk(b"VP8X", bytes([0x10, 0, 0, 0]) + _le24(w - 1) + _le24(h - 1))
+    return _riff(vp8x + _chunk(b"ALPH", alph_chunk(img[..., 3], alpha_filter,
+                                                   alpha_compressed)) + frame)
+
+
+def webp_animation(frames: Sequence[Tuple[np.ndarray, int, int]], canvas: Tuple[int, int],
+                   **options) -> bytes:
+    """An animated WebP: a VP8X canvas (w, h) with the alpha and animation
+    flags, an ANIM chunk (transparent background, looping), and one ANMF
+    per (image, x, y) at that even offset, its image lossless (options to
+    vp8l_stream), shown 100 ms, not blended with the canvas, not disposed."""
+    cw, ch = canvas
+    body = _chunk(b"VP8X", bytes([0x12, 0, 0, 0]) + _le24(cw - 1) + _le24(ch - 1))
+    body += _chunk(b"ANIM", b"\x00\x00\x00\x00" + struct.pack("<H", 0))
+    for img, x, y in frames:
+        if x % 2 or y % 2:
+            raise ValueError("ANMF offsets are even")
+        h, w = img.shape[:2]
+        head = (_le24(x // 2) + _le24(y // 2) + _le24(w - 1) + _le24(h - 1) + _le24(100)
+                + bytes([0x02]))
+        body += _chunk(b"ANMF", head + _chunk(b"VP8L", vp8l_stream(img, **options)))
+    return _riff(body)
+
+
+# --- GIF ------------------------------------------------------------------
+
+def gif(indices: np.ndarray, palette: Optional[np.ndarray] = None,
+        transparency: Optional[int] = None, interlace: bool = False, clear_when_full: bool = True,
+        screen: Optional[Tuple[int, int]] = None, offset: Tuple[int, int] = (0, 0),
+        local_palette: bool = False) -> bytes:
+    """A GIF89a of one image of [h, w] uint8 indices: palette [n, 3] (padded
+    to a power of two; None: the grey ramp, which Pillow reads as "L") as
+    the global table or the image's local one, a graphic-control extension
+    with the transparency index, a comment and a NETSCAPE2.0 block (both
+    skipped by a reader), rows interlaced or not, LZW at the table's bits
+    (at least 2) with or without a clear code when its table fills."""
+    h, w = indices.shape
+    top = int(indices.max()) if indices.size else 0
+    n = len(palette) if palette is not None else top + 1
+    bits = max(1, (max(n, top + 1) - 1).bit_length())
+    table = np.zeros((1 << bits, 3), np.uint8)
+    if palette is None:
+        table[:] = np.arange(1 << bits)[:, None]
+    else:
+        table[:len(palette)] = palette
+    sw, sh = screen if screen is not None else (offset[0] + w, offset[1] + h)
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, 0 if local_palette else 0x80 | (bits - 1),
+                                  0, 0)
+    if not local_palette:
+        out += table.tobytes()
+    out += b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    out += b"!\xfe\x07comment\x00"
+    if transparency is not None:
+        out += b"!\xf9\x04" + bytes([1, 0, 0, transparency]) + b"\x00"
+    flags = (0x40 if interlace else 0) | ((0x80 | (bits - 1)) if local_palette else 0)
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, flags)
+    if local_palette:
+        out += table.tobytes()
+    rows = (np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                            np.arange(1, h, 2)]) if interlace else np.arange(h))
+    src = np.ascontiguousarray(indices[rows], np.uint8).reshape(-1)
+    size = max(2, bits)
+    cap = 2 * src.size + 1024
+    lzw = np.empty(cap, np.uint8)
+    k = _lib().gif_lzw_encode(src.ctypes.data, src.size, size, int(clear_when_full),
+                              lzw.ctypes.data, cap)
+    if k < 0:
+        raise ValueError("GIF LZW data larger than its buffer")
+    data = lzw[:k].tobytes()
+    out += bytes([size]) + b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                                    for i in range(0, len(data), 255)) + b"\x00"
+    return out + b";"

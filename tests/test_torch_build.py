@@ -20,3 +20,21 @@ def test_library_path_follows_the_source_and_its_headers(tmp_path, monkeypatch):
 
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert _build.library_path("k") not in (first, edited)
+
+
+def test_host_library_path_follows_its_headers(tmp_path, monkeypatch):
+    """A g++ source (csrc/<name>.cpp) is keyed by the host headers it
+    includes (as vp8.h is shared by the WebP decoder and writer), and not
+    by a header beside it that it does not include."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "d.cpp").write_text('#include <cstdint>\n#include "tables.h"\n')
+    header = tmp_path / "tables.h"
+    header.write_text("static const int kDc[2] = {4, 5};\n")
+    other = tmp_path / "other.h"
+    other.write_text("static const int kOther = 1;\n")
+    first = _build.library_path("d")
+    assert first.name.startswith("libd-")
+    other.write_text("static const int kOther = 2;\n")
+    assert _build.library_path("d") == first
+    header.write_text("static const int kDc[2] = {4, 6};\n")
+    assert _build.library_path("d") != first

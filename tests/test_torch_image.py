@@ -207,8 +207,8 @@ REFUSED = {
     "LA": (lambda: _png(np.zeros((4, 4, 2), np.uint8), 4, 8), ValueError, False),
     "adam7": (lambda: _png(np.zeros((4, 4, 3), np.uint8), 2, 8, interlace=2), ValueError, True),
     "1-bit": (lambda: _png(np.zeros((4, 1, 3), np.uint8), 2, 1), NotImplementedError, True),
-    "gif": (lambda: _pil_file("GIF"), ValueError, False),
-    "webp": (lambda: _pil_file("WEBP"), ValueError, False),
+    "jpeg2000": (lambda: _pil_file("JPEG2000"), ValueError, False),
+    "avif": (lambda: _pil_file("AVIF"), ValueError, False),
 }
 
 
@@ -217,9 +217,9 @@ def test_refused_files_raise(case):
     """12-bit: Pillow opens 8-bit JPEGs only; hierarchical: libjpeg refuses
     SOF5-7; adam7: an interlace method that is not Adam7; 1-bit: 1-bit RGB,
     which PNG does not define. Pillow refuses each of these too. Pillow
-    reads the others: LA, grey + alpha, which no trainer takes; gif and
-    webp, PIL's own files, containers still to be ported (ROADMAP section
-    A)."""
+    reads the others: LA, grey + alpha, which no trainer takes; jpeg2000
+    and avif, PIL's own files, containers still to be ported (ROADMAP
+    section A)."""
     make, error, pil_refuses = REFUSED[case]
     data = make()
     with pytest.raises(error):

@@ -323,4 +323,4 @@ def test_image_size_reads_tiff_and_bmp_headers(tmp_path):
 
 def test_unknown_container_names_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP"):
-        image_io.decode(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
+        image_io.decode(b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00\x00\x00\x14ftypjp2 ")

@@ -107,12 +107,18 @@ def test_package_imports_without_jax():
 def test_host_sources_are_the_ports_own():
     from frosting_tpu_torch import _build
 
-    sources = sorted((ROOT / "frosting_tpu_torch" / "csrc").glob("*.cpp"))
+    csrc = ROOT / "frosting_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cpp"))
     assert {p.stem for p in sources} >= {"qem", "image_decode"}
-    for path in sources:
+    # a source includes system headers and the port's own host headers
+    # (csrc/*.h, which include system headers only)
+    for path in sources + sorted(csrc.glob("*.h")):
         includes = [line.split()[1] for line in path.read_text().splitlines()
                     if line.startswith("#include")]
-        assert all(i.startswith("<") for i in includes), (path.name, includes)
+        own = [i.strip('"') for i in includes if not i.startswith("<")]
+        assert all((csrc / i).is_file() and i.endswith(".h") for i in own), (path.name, includes)
+        assert path.suffix == ".cpp" or not own, (path.name, includes)
         assert "frosting_tpu/" not in path.read_text()
+    for path in sources:
         assert _build.source_path(path.stem) == path
         assert _build.library_path(path.stem).parent == ROOT / "frosting_tpu_torch" / "_build"
